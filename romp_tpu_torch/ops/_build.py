@@ -1,0 +1,108 @@
+"""Build the port's CUDA kernels at first use and load them with ctypes.
+
+`romp_tpu_torch/csrc/*.cu` are compiled by `nvcc` for `sm_90a` into ONE
+shared library with a plain C interface, written to `build/romp_tpu_torch/`
+at the repository root (git-ignored). The library's name carries a hash of
+the sources, so an edited source is rebuilt and a stale library is never
+loaded. Nothing here runs at import time: the CPU tests import every module
+on a machine without `nvcc`.
+
+Not `torch.utils.cpp_extension.load`: a source that includes PyTorch's
+headers takes minutes to compile, a plain-C one seconds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "romp_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argtypes (every pointer and the stream as void*).
+SIGNATURES = {
+    "romp_skinning_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "romp_conv3x3_bn_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    found = cand if os.path.exists(cand) else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA "
+                           "kernels are built from source at first use")
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libromp_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built if needed, with every entry point typed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check_operand(what: str, name: str, t, dtype, shape, device) -> None:
+    """Raise ValueError unless tensor t is on `device`, of `dtype` and
+    `shape`, and contiguous: what a kernel's raw pointer needs."""
+    if t.device != device:
+        raise ValueError(f"{what}: {name} on {t.device}, needs {device}")
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{what}: {name} is {t.dtype} {tuple(t.shape)}, "
+                         f"needs {dtype} {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a nonzero cudaError_t."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")

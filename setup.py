@@ -8,14 +8,17 @@ setup(
     version="0.1.0",
     description=("TPU-native multi-person 3D human mesh recovery "
                  "(ROMP / BEV / TRACE capabilities, JAX/XLA/Pallas)"),
-    packages=find_packages(include=["romp_tpu", "romp_tpu.*"]),
+    packages=find_packages(include=["romp_tpu", "romp_tpu.*",
+                                    "romp_tpu_torch", "romp_tpu_torch.*"]),
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "optax"],
     extras_require={
         "io": ["opencv-python"],
         "train": ["orbax-checkpoint", "pyyaml"],
+        "torch": ["torch"],     # romp_tpu_torch: the PyTorch + CUDA port
     },
-    package_data={"romp_tpu.vis": ["native/*.cpp"]},
+    package_data={"romp_tpu.vis": ["native/*.cpp"],
+                  "romp_tpu_torch": ["csrc/*.cu"]},
     entry_points={
         "console_scripts": [
             "romp=romp_tpu.cli.romp:main",
