@@ -1,8 +1,10 @@
 """`romp` CLI of the port — image / video / webcam inference.
 
 Same flags and defaults as `romp_tpu/cli/romp.py`; only the device call
-changes. `--GPU N` (default 0) runs on `cuda:N` and raises when that card
-does not exist; `--GPU -1` runs on the CPU.
+changes. Imports nothing of the JAX package: the flags, the mode loops, the
+video tracker, image IO and the renderer are the port's own copies.
+`--GPU N` (default 0) runs on `cuda:N` and raises when that card does not
+exist; `--GPU -1` runs on the CPU.
 """
 from __future__ import annotations
 
@@ -12,10 +14,10 @@ import sys
 from typing import Dict, Optional
 
 import numpy as np
-import torch
 
-from romp_tpu.cli.common import (
-    DEFAULT_HOME, add_common_flags, load_smpl_assets_flexible,
+from romp_tpu_torch.cli.common import (
+    DEFAULT_HOME, add_common_flags, device_from_flag,
+    load_checkpoint_flexible, load_smpl_assets_flexible,
 )
 
 
@@ -24,9 +26,6 @@ def romp_settings(input_args=None):
         description="romp_tpu_torch: one-stage multi-person 3D mesh "
                     "recovery (PyTorch + CUDA)")
     add_common_flags(parser, "romp")
-    for action in parser._actions:
-        if action.dest == "GPU":
-            action.help = "CUDA device index; -1 runs on the CPU"
     parser.add_argument("--center_thresh", type=float, default=0.25)
     parser.add_argument("--show_items", type=str, default="mesh")
     parser.add_argument("--smpl_path", type=str,
@@ -42,40 +41,12 @@ def romp_settings(input_args=None):
     return args
 
 
-def device_from_flag(gpu: int) -> torch.device:
-    """`--GPU` as the reference reads it: N -> cuda:N, -1 -> cpu. Never
-    falls back to the CPU when the card is missing."""
-    if gpu < 0:
-        return torch.device("cpu")
-    if not torch.cuda.is_available() or gpu >= torch.cuda.device_count():
-        raise RuntimeError(
-            f"--GPU {gpu} asks for cuda:{gpu}, which this machine does not "
-            "have; pass --GPU -1 to run on the CPU")
-    return torch.device("cuda", gpu)
-
-
-def load_checkpoint_flexible(path: str) -> Dict[str, torch.Tensor]:
-    """A released `.pkl`/`.pth`, or the JAX package's `.npz`; random init
-    (seed 0) with a loud warning when the file is missing."""
-    from romp_tpu_torch.models.romp import init_romp_params
-    from romp_tpu_torch.utils.checkpoint import (
-        load_params_npz, load_torch_checkpoint,
-    )
-
-    if path and osp.exists(path):
-        if path.endswith(".npz"):
-            return load_params_npz(path)
-        return load_torch_checkpoint(path)
-    print(f"WARNING: checkpoint {path!r} not found — using random init. "
-          "A released ROMP.pkl loads as it is.", file=sys.stderr)
-    return init_romp_params(torch.Generator().manual_seed(0))
-
-
 class ROMP:
     """Python API: `ROMP(settings)(bgr_image) -> results dict`."""
 
     def __init__(self, settings):
-        from romp_tpu.pipeline.video import TemporalOptimizer
+        from romp_tpu_torch.models.romp import init_romp_params
+        from romp_tpu_torch.pipeline.video import TemporalOptimizer
         from romp_tpu_torch.pipeline.romp_pipeline import (
             RompConfig, RompPipeline,
         )
@@ -83,7 +54,8 @@ class ROMP:
 
         self.settings = settings
         device = device_from_flag(settings.GPU)
-        params = load_checkpoint_flexible(settings.model_path)
+        params = load_checkpoint_flexible(settings.model_path,
+                                          init_romp_params)
         assets = load_smpl_assets_flexible(settings.smpl_path, num_betas=10)
         self.smpl_faces = assets.faces
         cfg = RompConfig(
@@ -101,13 +73,13 @@ class ROMP:
                          if settings.temporal_optimize else None)
         self.renderer = None
         if settings.render_mesh:
-            from romp_tpu.vis.renderer import setup_renderer
+            from romp_tpu_torch.vis.renderer import setup_renderer
 
             self.renderer = setup_renderer(settings.renderer)
 
     def __call__(self, bgr_image: np.ndarray) -> Optional[Dict]:
-        from romp_tpu.pipeline.video import filter_valid
-        from romp_tpu.utils.io import img_preprocess
+        from romp_tpu_torch.pipeline.video import filter_valid
+        from romp_tpu_torch.utils.io import img_preprocess
         from romp_tpu_torch.ops.projection import (
             convert_to_org_image_coords_np,
         )
@@ -130,7 +102,7 @@ class ROMP:
             res["verts_camed_org"] = convert_to_org_image_coords_np(
                 res["verts_camed"], pad_info)
         if self.renderer is not None and "verts_camed_org" in res:
-            from romp_tpu.vis.compositor import render_results
+            from romp_tpu_torch.vis.compositor import render_results
 
             res["rendered_image"] = render_results(
                 self.renderer, res, bgr_image, self.smpl_faces,
@@ -140,7 +112,7 @@ class ROMP:
 
 def main(input_args=None):
     settings = romp_settings(input_args)
-    from romp_tpu.cli.runner import run_tool
+    from romp_tpu_torch.cli.runner import run_tool
 
     return run_tool(ROMP(settings), settings)
 

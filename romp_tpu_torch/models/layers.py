@@ -1,4 +1,4 @@
-"""Layer modules of the port (2D inference subset of `romp_tpu/models/layers.py`).
+"""Layer modules of the port (inference subset of `romp_tpu/models/layers.py`).
 
 Module names follow the reference torch state_dict, which is also the JAX
 package's flat-dict naming (`layers.py:180-209`): a released checkpoint loads
@@ -13,6 +13,13 @@ rounds both operands to bf16 and runs the f32 conv. On the card the caller
 lets cuDNN use TF32 on the mixed path only: a bf16 value is exact in TF32,
 so the products stay exact; the f32 path runs with TF32 off (see
 `romp_tpu_torch.pipeline.romp_pipeline.precision_flags`).
+
+The JAX `conv1d` and `conv3d` (`layers.py:221-225, 241-245`) and the z-band
+conv3d of `basic_block_3d` (`:301-305`) have no `preferred_element_type`:
+on the mixed path their output is rounded to bf16 before it is cast back to
+f32, and a bias is added afterwards in f32. `Conv1d` / `Conv3d` reproduce
+that: bf16-rounded operands, the f32 conv, the output rounded to bf16, then
+the bias.
 """
 from __future__ import annotations
 
@@ -60,10 +67,49 @@ class Conv2d(nn.Conv2d):
         return F.conv2d(x, w, self.bias, self.stride, self.padding)
 
 
+class _RoundedConv:
+    """forward of Conv1d / Conv3d under the compute_dtype rule (see the
+    module docstring): on the mixed path the output is rounded to bf16."""
+
+    def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
+        if opts.compute_dtype != torch.bfloat16:
+            return self._conv_forward(x, self.weight, self.bias)
+        y = bf16_round(self._conv_forward(bf16_round(x),
+                                          bf16_round(self.weight), None))
+        return y if self.bias is None else y + self.bias.view(
+            -1, *(1,) * (y.dim() - 2))
+
+
+class Conv1d(_RoundedConv, nn.Conv1d):
+    """nn.Conv1d over (B, C, W), symmetric padding (kernel - 1) // 2."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1, bias: bool = False):
+        super().__init__(in_ch, out_ch, kernel, stride, (kernel - 1) // 2,
+                         bias=bias)
+
+
+class Conv3d(_RoundedConv, nn.Conv3d):
+    """nn.Conv3d over (B, C, D, H, W), symmetric padding (kernel - 1) // 2."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 3,
+                 stride: int = 1, bias: bool = False):
+        super().__init__(in_ch, out_ch, kernel, stride, (kernel - 1) // 2,
+                         bias=bias)
+
+
 def batch_norm(in_ch: int) -> nn.BatchNorm2d:
     """BatchNorm2d with the JAX package's eps; inference uses running stats
     (the port runs its network in eval mode)."""
     return nn.BatchNorm2d(in_ch, eps=BN_EPS)
+
+
+def batch_norm1d(in_ch: int) -> nn.BatchNorm1d:
+    return nn.BatchNorm1d(in_ch, eps=BN_EPS)
+
+
+def batch_norm3d(in_ch: int) -> nn.BatchNorm3d:
+    return nn.BatchNorm3d(in_ch, eps=BN_EPS)
 
 
 class BasicBlock(nn.Module):
@@ -113,6 +159,58 @@ class Bottleneck(nn.Module):
         if self.downsample is not None:
             residual = self.downsample[1](self.downsample[0](x, opts))
         return torch.relu(out + residual)
+
+
+class BasicBlockConvDs(nn.Module):
+    """BasicBlock whose downsample is a bare 1x1 conv WITH bias and no BN,
+    the BEV / TRACE head variant (`layers.py:248-260`)."""
+
+    def __init__(self, in_ch: int, planes: int):
+        super().__init__()
+        self.conv1 = Conv2d(in_ch, planes, 3, 1)
+        self.bn1 = batch_norm(planes)
+        self.conv2 = Conv2d(planes, planes, 3, 1)
+        self.bn2 = batch_norm(planes)
+        self.downsample = Conv2d(in_ch, planes, 1, 1, padding=0, bias=True)
+
+    def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x, opts)))
+        out = self.bn2(self.conv2(out, opts))
+        return torch.relu(out + self.downsample(x, opts))
+
+
+class BasicBlock1d(nn.Module):
+    """BEV BasicBlock_1D over (B, C, W): conv-bn-relu-conv-bn-relu, no
+    residual (`layers.py:263-270`)."""
+
+    def __init__(self, in_ch: int, planes: int):
+        super().__init__()
+        self.conv1 = Conv1d(in_ch, planes, 3)
+        self.bn1 = batch_norm1d(planes)
+        self.conv2 = Conv1d(planes, planes, 3)
+        self.bn2 = batch_norm1d(planes)
+
+    def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x, opts)))
+        return torch.relu(self.bn2(self.conv2(out, opts)))
+
+
+class BasicBlock3d(nn.Module):
+    """BEV BasicBlock_3D over (B, C, D, H, W): conv-bn-relu-conv-bn plus the
+    residual, no final relu (`layers.py:308-331`). A plain Conv3d: the JAX
+    package's z-band recast (`_conv2d_zband`) is a TPU layout device that
+    computes the same function."""
+
+    def __init__(self, in_ch: int, planes: int):
+        super().__init__()
+        self.conv1 = Conv3d(in_ch, planes, 3)
+        self.bn1 = batch_norm3d(planes)
+        self.conv2 = Conv3d(planes, planes, 3)
+        self.bn2 = batch_norm3d(planes)
+
+    def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
+        out = torch.relu(self.bn1(self.conv1(x, opts)))
+        return self.bn2(self.conv2(out, opts)) + x
 
 
 def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:

@@ -1,8 +1,9 @@
 """Build the port's CUDA kernels at first use and load them with ctypes.
 
-`romp_tpu_torch/csrc/*.cu` are compiled by `nvcc` for `sm_90a` into ONE
-shared library with a plain C interface, written to `build/romp_tpu_torch/`
-at the repository root (git-ignored). The library's name carries a hash of
+`romp_tpu_torch/csrc/*.cu` are compiled by `nvcc` for `sm_90a`, one
+process per source, all started together, and linked into ONE shared
+library with a plain C interface, written to `build/romp_tpu_torch/` at the
+repository root (git-ignored). The library's name carries a hash of
 the sources, so an edited source is rebuilt and a stale library is never
 loaded. Nothing here runs at import time: the CPU tests import every module
 on a machine without `nvcc`.
@@ -24,7 +25,7 @@ from typing import Optional
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "romp_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,6 +33,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "romp_skinning_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
     "romp_conv3x3_bn_act": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "romp_deform_conv2d_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -66,14 +69,28 @@ def build() -> Path:
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib)   # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [os.path.join(work, src.stem + ".o") for src in _sources()]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj,
+                                   str(src)], stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE, text=True)
+                 for src, obj in zip(_sources(), objs)]
+        errors = []
+        for src, proc in zip(_sources(), procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"nvcc {src.name} failed ({proc.returncode}):"
+                              f"\n{err}")
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        tmp = os.path.join(work, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{proc.stderr}")
+        os.replace(tmp, lib)   # atomic: a concurrent loader sees all or none
     return lib
 
 

@@ -92,3 +92,18 @@ def estimate_translation_lstsq(joints3d: torch.Tensor, joints2d: torch.Tensor,
     # solve_ex: no host sync on the singular-matrix check
     t = torch.linalg.solve_ex(A, b[..., None])[0][..., 0]
     return torch.where(valid[:, None], t, torch.full_like(t, INVALID_TRANS))
+
+
+def perspective_projection(points: torch.Tensor, translation: torch.Tensor,
+                           focal_length: float, img_size: float = 512.0,
+                           normalized: bool = True) -> torch.Tensor:
+    """Pinhole projection of (..., N, 3) points offset by a (..., 3)
+    translation (`projection.py:131-145`): normalized [-1, 1] coordinates,
+    or pixels when `normalized` is False."""
+    p = points + translation[..., None, :]
+    z = torch.clamp(p[..., 2], min=1e-6)
+    x = p[..., 0] / z * focal_length
+    y = p[..., 1] / z * focal_length
+    if normalized:
+        return torch.stack([x, y], dim=-1) / (img_size / 2.0)
+    return torch.stack([x + img_size / 2.0, y + img_size / 2.0], dim=-1)

@@ -184,10 +184,11 @@ def project_to_org_image(out: Dict[str, torch.Tensor],
 
 class RompPipeline:
     """Owns the network (built from a torch-layout state dict), the SMPL
-    model and the config, on one device."""
+    model and the config, on one device: the card unless the caller passes
+    another (the CPU tests pass "cpu"). It never falls back to the CPU."""
 
     def __init__(self, params: Mapping[str, torch.Tensor], smpl: SmplModel,
-                 cfg: Optional[RompConfig] = None, device="cpu"):
+                 cfg: Optional[RompConfig] = None, device="cuda"):
         self.cfg = cfg or RompConfig()
         self.device = torch.device(device)
         net = RompNet(self.cfg.backbone)

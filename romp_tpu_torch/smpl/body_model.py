@@ -4,7 +4,7 @@ Shape blend shapes -> joint regression -> Rodrigues + pose blend shapes ->
 the 24-joint kinematic chain -> linear blend skinning (the skinning kernel,
 `romp_tpu_torch/ops/lbs.py`) -> the 71-row joint set. V-sized
 intermediates keep V as the trailing dim, the layout the skinning kernel
-reads. `smpla_forward` (SMPL+A, BEV) comes with the BEV slice.
+reads. `smpla_forward` is SMPL+A (adult + infant), which TRACE runs.
 """
 from __future__ import annotations
 
@@ -14,9 +14,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-# the numpy-only asset loader is shared with the JAX package; re-exported so
-# that a user of the port imports it from here
-from romp_tpu.smpl.assets import SmplAssets, synthetic_assets  # noqa: F401
+# re-exported so that a user of the port imports it from here
+from romp_tpu_torch.smpl.assets import (  # noqa: F401
+    SmplAssets, synthetic_assets,
+)
 from romp_tpu_torch.ops.lbs import skinning
 from romp_tpu_torch.ops.rotations import axis_angle_to_matrix
 
@@ -117,3 +118,17 @@ def smpl_forward(model: SmplModel, betas: torch.Tensor, pose: torch.Tensor,
         joints = joints - root
         verts = verts - root
     return verts, joints
+
+
+def smpla_forward(adult: SmplModel, baby: SmplModel, betas: torch.Tensor,
+                  pose: torch.Tensor, root_align: bool = True,
+                  baby_thresh: float = 0.8
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SMPL+A (`body_model.py:174-187`): both the adult (11-beta SMPL-A) and
+    the infant (SMIL, 10 betas) model run on every person, and each person
+    takes the infant's output where `betas[:, 10] > baby_thresh`. Two
+    skinning launches."""
+    v_a, j_a = smpl_forward(adult, betas, pose, root_align=root_align)
+    v_b, j_b = smpl_forward(baby, betas[:, :10], pose, root_align=root_align)
+    is_baby = (betas[:, 10] > baby_thresh)[:, None, None]
+    return torch.where(is_baby, v_b, v_a), torch.where(is_baby, j_b, j_a)

@@ -1,9 +1,10 @@
 """Weight bridge between the JAX package's flat dict and the port's modules.
 
 Both use the reference torch state_dict keys. The JAX package stores conv
-kernels HWIO (`romp_tpu/utils/checkpoint.py:31-38`) and drops BatchNorm's
-`num_batches_tracked` (`:28`); the port's modules use torch's OIHW and have
-that counter. Only the 2D layouts of this slice are handled.
+kernels channels-last (`romp_tpu/utils/checkpoint.py:31-38`): 2D HWIO, 3D
+DHWIO, 1D LIO; and it drops BatchNorm's `num_batches_tracked` (`:28`). The
+port's modules use torch's OIHW / OIDHW / OIL and have that counter. 2-D
+Linear and Embedding weights are stored as torch stores them.
 """
 from __future__ import annotations
 
@@ -11,6 +12,10 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+
+
+# conv kernel ndim -> the transpose from the JAX layout to torch's
+_TO_TORCH = {3: (2, 1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
 
 
 def _fill_batch_counters(state: Dict[str, torch.Tensor]) -> None:
@@ -23,13 +28,14 @@ def _fill_batch_counters(state: Dict[str, torch.Tensor]) -> None:
 
 def state_dict_from_jax(params: Mapping[str, "np.ndarray"]
                         ) -> Dict[str, torch.Tensor]:
-    """JAX flat dict -> port state dict: 4-D `.weight` HWIO -> OIHW, all
-    else passed through as f32, BatchNorm counters filled in."""
+    """JAX flat dict -> port state dict: a `.weight` of 4 dims HWIO -> OIHW,
+    of 5 dims DHWIO -> OIDHW, of 3 dims LIO -> OIL; all else passed through
+    as f32, BatchNorm counters filled in."""
     out: Dict[str, torch.Tensor] = {}
     for key, val in params.items():
         arr = np.asarray(val, dtype=np.float32)
-        if key.endswith(".weight") and arr.ndim == 4:
-            arr = arr.transpose(3, 2, 0, 1)
+        if key.endswith(".weight") and arr.ndim in _TO_TORCH:
+            arr = arr.transpose(*_TO_TORCH[arr.ndim])
         out[key] = torch.tensor(arr)   # a contiguous, writable copy
     _fill_batch_counters(out)
     return out

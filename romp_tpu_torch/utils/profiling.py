@@ -1,13 +1,17 @@
-"""Device-time profile of the port's ROMP image path on one GPU
-(counterpart of `romp_tpu/utils/profiling.py`).
+"""Device-time profile of the port's ROMP image path and TRACE video path
+on one GPU (counterpart of `romp_tpu/utils/profiling.py`).
 
-    python -m romp_tpu_torch.utils.profiling [--out profile.txt]
+    python -m romp_tpu_torch.utils.profiling [--path romp|trace|both]
+        [--out profile.txt]
 
 Full width (HRNet-W32, 512x512, V = 6890) with seeded random weights
 (BatchNorm calibrated, `calibrate_batchnorm`) and synthetic SMPL assets.
-For the mixed path (the CLI default) with `fuse_chains` off and on, at
-batch 1 and 64, it runs `RompPipeline` under `torch.profiler` (CPU + CUDA
-activities) after warm-up calls and prints, per configuration:
+ROMP: the mixed path (the CLI default) with `fuse_chains` off and on, at
+batch 1 and 64, through `RompPipeline`. TRACE: `TracePipeline` with the
+CLI's defaults (64 slots, center_thresh 0.1, zero flow), one call being a
+stream of four 8-frame clips through `process_stream`, mixed path and f32.
+Each runs under `torch.profiler` (CPU + CUDA activities) after warm-up
+calls and prints, per configuration:
 - wall ms per call: host clock around the profiled calls, ended by
   `torch.cuda.synchronize()`;
 - device busy ms per call: the union of the device-side events' intervals
@@ -31,15 +35,21 @@ from torch.profiler import ProfilerActivity, profile
 from romp_tpu_torch.models.romp import (
     RompNet, calibrate_batchnorm, init_romp_params,
 )
+from romp_tpu_torch.models.trace import (
+    TraceNet, calibrate_trace_batchnorm, init_trace_params,
+)
 from romp_tpu_torch.pipeline.romp_pipeline import RompConfig, RompPipeline
+from romp_tpu_torch.pipeline.trace_pipeline import TraceConfig, TracePipeline
 from romp_tpu_torch.smpl.body_model import SmplModel, synthetic_assets
 
 # kind of kernel -> substrings of its name; the first match wins
 KINDS = (
     ("skinning kernel", ("skinning_kernel",)),
+    ("deform kernel", ("deform_conv_kernel",)),
     ("chain kernel", ("conv3x3_bn_act_kernel",)),
     ("batch norm", ("bn_fw", "batch_norm")),
-    ("conv (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "cudnn")),
+    ("conv (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "cudnn",
+                               "fft", "pointwise_mult_and_sum_complex")),
     ("copies and casts", ("copy", "Memcpy")),
 )
 OTHER = "other elementwise / reduce"
@@ -73,18 +83,67 @@ def seeded_params(seed: int = 0) -> Dict[str, torch.Tensor]:
     return net.state_dict()
 
 
+def seeded_trace_params(seed: int = 0, clip_length: int = 8,
+                        device="cuda") -> Dict[str, torch.Tensor]:
+    """Full-width TRACE weights (HRNet-W32 backbone + head, 128x128 maps):
+    the backbone of `seeded_params`, a seeded head (`init_trace_params`)
+    whose BatchNorm statistics are calibrated on one seeded random clip of
+    clip_length 512x512 frames (`calibrate_trace_batchnorm`), on `device`.
+    Returned on the CPU."""
+    params = init_trace_params(torch.Generator().manual_seed(seed),
+                               clip_length)
+    params.update({k: v for k, v in seeded_params(seed).items()
+                   if k.startswith("backbone.")})
+    net = TraceNet()
+    net.load_state_dict(params)
+    net = net.to(device).eval()
+    frames = torch.from_numpy((np.random.RandomState(seed + 11).rand(
+        clip_length, 512, 512, 3) * 255).astype(np.uint8)).to(device)
+    with torch.no_grad():
+        feats = net.extract_features(frames)
+        calibrate_trace_batchnorm(net, torch.cat([feats[:1], feats]),
+                                  clip_length)
+    return {k: v.cpu() for k, v in net.state_dict().items()}
+
+
 def profile_config(pipe: RompPipeline, batch: int, calls: int,
                    warmup: int = 3) -> Tuple[dict, str]:
     images = (np.random.RandomState(batch).rand(batch, 512, 512, 3)
               * 255).astype(np.uint8)
+    row, table = device_profile(lambda: pipe(images), calls, warmup)
+    return dict(compute_dtype=pipe.cfg.compute_dtype,
+                fuse_chains=pipe.cfg.fuse_chains, batch=batch,
+                **row), table
+
+
+def profile_trace(pipe: TracePipeline, calls: int = 2, clips: int = 4,
+                  warmup: int = 1) -> Tuple[dict, str]:
+    """One call: a stream of `clips` 8-frame clips through process_stream
+    (the tracker state carries on from call to call)."""
+    rng = np.random.RandomState(7)
+    frames = [(rng.rand(8, 512, 512, 3) * 255).astype(np.uint8)
+              for _ in range(clips)]
+
+    def stream():
+        list(pipe.process_stream(pipe.prefetch(f) for f in frames))
+
+    row, table = device_profile(stream, calls, warmup)
+    return dict(compute_dtype=pipe.cfg.compute_dtype, clips_per_call=clips,
+                **row), table
+
+
+def device_profile(fn, calls: int, warmup: int) -> Tuple[dict, str]:
+    """fn() `calls` times under torch.profiler after `warmup` calls: wall
+    and device-busy ms, idle share, kernels, busy time by kind, per call;
+    and the op table."""
     for _ in range(warmup):
-        pipe(images)
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
-            pipe(images)
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
     device = [e for e in prof.events()
@@ -96,9 +155,7 @@ def profile_config(pipe: RompPipeline, batch: int, calls: int,
         by_kind[k] = by_kind.get(k, 0.0) + e.time_range.elapsed_us()
     busy_ms = busy_us([(e.time_range.start, e.time_range.end)
                        for e in device]) / 1e3 / calls
-    row = dict(compute_dtype=pipe.cfg.compute_dtype,
-               fuse_chains=pipe.cfg.fuse_chains, batch=batch, calls=calls,
-               wall_ms_per_call=wall_ms, device_busy_ms_per_call=busy_ms,
+    row = dict(calls=calls, wall_ms_per_call=wall_ms, device_busy_ms_per_call=busy_ms,
                idle_share=1.0 - busy_ms / wall_ms,
                kernels_per_call=len(device) / calls,
                busy_ms_per_call_by_kind={
@@ -111,21 +168,35 @@ def profile_config(pipe: RompPipeline, batch: int, calls: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=("romp", "trace", "both"),
+                    default="both")
     ap.add_argument("--out", default=None,
                     help="write the profiler's op tables to this file")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profiling: no CUDA device; this profiles the GPU")
     dev = torch.device("cuda", 0)
-    params, assets = seeded_params(), synthetic_assets(seed=0)
     tables = []
-    for fuse in (False, True):
-        cfg = RompConfig(compute_dtype="bfloat16", fuse_chains=fuse)
-        pipe = RompPipeline(params, SmplModel(assets), cfg, dev)
-        for batch, calls in ((1, 10), (64, 3)):
-            row, table = profile_config(pipe, batch, calls)
-            print(json.dumps(row), flush=True)
-            tables.append(f"== fuse_chains={fuse} batch={batch}\n{table}")
+    if args.path in ("romp", "both"):
+        params, assets = seeded_params(), synthetic_assets(seed=0)
+        for fuse in (False, True):
+            cfg = RompConfig(compute_dtype="bfloat16", fuse_chains=fuse)
+            pipe = RompPipeline(params, SmplModel(assets), cfg, dev)
+            for batch, calls in ((1, 10), (64, 3)):
+                row, table = profile_config(pipe, batch, calls)
+                print(json.dumps(row), flush=True)
+                tables.append(f"== fuse_chains={fuse} batch={batch}\n{table}")
+    if args.path in ("trace", "both"):
+        params = seeded_trace_params(device=dev)
+        adult = SmplModel(synthetic_assets(seed=0, num_betas=11))
+        baby = SmplModel(synthetic_assets(seed=1, num_betas=10))
+        for dtype in ("bfloat16", "float32"):
+            cfg = TraceConfig(max_person=64, conf_thresh=0.1,
+                              compute_dtype=dtype)
+            pipe = TracePipeline(params, adult, baby, cfg, device=dev)
+            row, table = profile_trace(pipe)
+            print(json.dumps(dict(path="trace", **row)), flush=True)
+            tables.append(f"== trace compute_dtype={dtype}\n{table}")
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n\n".join(tables))

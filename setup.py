@@ -18,7 +18,8 @@ setup(
         "torch": ["torch"],     # romp_tpu_torch: the PyTorch + CUDA port
     },
     package_data={"romp_tpu.vis": ["native/*.cpp"],
-                  "romp_tpu_torch": ["csrc/*.cu"]},
+                  "romp_tpu_torch": ["csrc/*.cu"],
+                  "romp_tpu_torch.vis": ["native/*.cpp"]},
     entry_points={
         "console_scripts": [
             "romp=romp_tpu.cli.romp:main",

@@ -1,6 +1,8 @@
 """The port's `romp` CLI end to end on the CPU, and the port's freedom from
-jax."""
+jax and from the JAX package."""
+import os
 import os.path as osp
+import re
 import subprocess
 import sys
 import textwrap
@@ -38,7 +40,7 @@ def test_romp_cli_image_mode_on_cpu(tmp_path, capsys):
 
 
 def test_gpu_flag_never_falls_back_to_cpu():
-    from romp_tpu_torch.cli.romp import device_from_flag
+    from romp_tpu_torch.cli.common import device_from_flag
 
     assert device_from_flag(-1) == torch.device("cpu")
     if not torch.cuda.is_available():
@@ -47,32 +49,56 @@ def test_gpu_flag_never_falls_back_to_cpu():
 
 
 def test_port_runs_without_jax():
-    """With `import jax` made to fail, every module of the port imports and
-    the tiny slice runs on the CPU."""
+    """With `import jax` and `import romp_tpu` made to fail, every module of
+    the port imports, and the tiny ROMP slice and the tiny TRACE slice run
+    on the CPU."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["romp_tpu"] = None
         import numpy as np, torch
         import romp_tpu_torch
         for m in pkgutil.walk_packages(romp_tpu_torch.__path__,
                                        "romp_tpu_torch."):
             importlib.import_module(m.name)
-        from romp_tpu.smpl.assets import synthetic_assets
         from romp_tpu_torch.models.romp import init_romp_params
+        from romp_tpu_torch.models.trace import init_trace_params
         from romp_tpu_torch.pipeline.romp_pipeline import (
             RompConfig, RompPipeline)
+        from romp_tpu_torch.pipeline.trace_pipeline import (
+            TraceConfig, TracePipeline)
+        from romp_tpu_torch.pipeline.trace_tracking import SeqConfig
         from romp_tpu_torch.smpl.body_model import SmplModel
+        from romp_tpu_torch.smpl.assets import synthetic_assets
         torch.set_num_threads(2)
         cfg = RompConfig(input_size=64, max_person=4, conf_thresh=-1e9,
                          backbone="hrnet32_tiny", compute_dtype="bfloat16",
                          fuse_chains=True)
         params = init_romp_params(torch.Generator().manual_seed(0),
                                   "hrnet32_tiny")
-        pipe = RompPipeline(params, SmplModel(synthetic_assets(seed=0)), cfg)
+        pipe = RompPipeline(params, SmplModel(synthetic_assets(seed=0)), cfg,
+                            "cpu")
         out = pipe(np.zeros((1, 64, 64, 3), np.uint8))
         assert out["verts"].shape == (1, 4, 6890, 3), out["verts"].shape
         assert all(torch.isfinite(v.float()).all() for v in out.values())
-        assert not any(k == "jax" or k.startswith("jax.")
+
+        tcfg = TraceConfig(input_size=64, temp_clip_length=2, max_person=4,
+                           conf_thresh=-1e9, backbone="hrnet32_tiny",
+                           compute_dtype="bfloat16")
+        tparams = init_trace_params(torch.Generator().manual_seed(0),
+                                    map_size=16, backbone="hrnet32_tiny")
+        seq = SeqConfig(large_object_thresh=-1e9, first_frame_det_thresh=-1e9,
+                        tracker_det_thresh=-1e9, tracker_match_thresh=1e9)
+        tpipe = TracePipeline(
+            tparams, SmplModel(synthetic_assets(seed=0, num_betas=11)),
+            SmplModel(synthetic_assets(seed=1, num_betas=10)), tcfg, seq,
+            device="cpu")
+        frames = (np.random.RandomState(0).rand(2, 64, 64, 3) * 255)
+        res = list(tpipe.process_stream([frames, frames]))
+        assert all(r is not None for r in res)
+        assert res[0]["verts"].shape[1:] == (6890, 3)
+        assert all(np.isfinite(v).all() for r in res for v in r.values())
+        assert not any(k.split(".")[0] in ("jax", "romp_tpu")
                        for k, v in sys.modules.items() if v is not None)
         print("OK")
     """)
@@ -80,3 +106,20 @@ def test_port_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("OK")
+
+
+def test_port_sources_import_nothing_of_the_jax_package():
+    """No line of the port, nor of chip_smoke.py, imports `romp_tpu` or
+    `jax` (docstrings may name them)."""
+    pattern = re.compile(r"^\s*(from|import)\s+(romp_tpu|jax)(\.|\s|$)")
+    files = [osp.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(osp.join(REPO, "romp_tpu_torch")):
+        files += [osp.join(root, n) for n in names if n.endswith(".py")]
+    offenders = []
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if pattern.match(line):
+                    offenders.append(f"{osp.relpath(path, REPO)}:{i}: "
+                                     f"{line.strip()}")
+    assert len(files) > 20 and not offenders, offenders

@@ -6,6 +6,7 @@ Skips without a CUDA device. On a machine with one:
 import pytest
 import torch
 
+from romp_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
 from romp_tpu_torch.ops.fused_chain import (
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain,
 )
@@ -83,3 +84,39 @@ def test_chain_kernel_matches_plain(dev, B, C, H, W):
         full = basic_chain(x, w, sc, sh, blocks)
         assert torch.equal(full, y)
         assert _rel(full, basic_chain_plain(x, w, sc, sh, blocks)) <= 5e-3
+
+
+@pytest.mark.parametrize("B,C,H,W,G,Cout", [(8, 32, 128, 128, 8, 32),
+                                            (3, 12, 13, 29, 3, 40)])
+def test_deform_kernel_matches_plain(dev, B, C, H, W, G, Cout):
+    """TRACE's shape, and a ragged one (pixel tail, two output tiles, Cg=4
+    of 3 groups). Offsets N(0, 2^2) cross the border. Bar 1e-4 of max|ref|:
+    f32 summation order."""
+    g = torch.Generator().manual_seed(B * C + H)
+    x = torch.randn(B, C, H, W, generator=g).to(dev)
+    off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
+    w = (torch.randn(Cout, C, 3, 3, generator=g) * 0.1).to(dev)
+    before = deform_conv2d.launches
+    out = deform_conv2d(x, off, w, deform_groups=G)
+    torch.cuda.synchronize()
+    assert deform_conv2d.launches == before + 1
+    assert _rel(out, deform_conv2d_plain(x, off, w, deform_groups=G)) <= 1e-4
+
+
+def test_deform_kernel_zero_offsets_is_conv(dev):
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 32, 40, 24, generator=g).to(dev)
+    w = torch.randn(32, 32, 3, 3, generator=g).to(dev)
+    off = torch.zeros(2, 8 * 18, 40, 24, device=dev)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        ref = torch.nn.functional.conv2d(x, w, padding=1)
+    assert _rel(deform_conv2d(x, off, w), ref) <= 1e-4
+
+
+def test_deform_kernel_rejects_bad_operands(dev):
+    x = torch.zeros(1, 16, 8, 8, device=dev)
+    w = torch.zeros(16, 16, 3, 3, device=dev)
+    with pytest.raises(ValueError):       # offsets for G=4, called with 8
+        deform_conv2d(x, torch.zeros(1, 4 * 18, 8, 8, device=dev), w)
+    with pytest.raises(ValueError):
+        deform_conv2d(x.half(), torch.zeros(1, 8 * 18, 8, 8, device=dev), w)

@@ -292,7 +292,7 @@ def test_romp_inference_matches_jax(tiny):
     jsmpl = JaxSmpl.from_assets(assets)
     jout = jax.jit(lambda p, im: jpipe.romp_inference(p, jsmpl, im, jcfg))(
         jp, jnp.asarray(tiny["image"]))
-    pipe = RompPipeline(sd, SmplModel(assets), RompConfig(**cfg_kw))
+    pipe = RompPipeline(sd, SmplModel(assets), RompConfig(**cfg_kw), "cpu")
     tout = pipe(tiny["image"])
     assert tout["verts"].shape == (2, 16, 6890, 3)
     assert tout["joints"].shape == (2, 16, 71, 3)
