@@ -5,10 +5,14 @@ path) once on one GPU.
 
 Phases, one line each; any failure raises and the exit code is nonzero:
  1. device: a CUDA device is required (nothing here runs on the CPU instead);
- 2. build: compile the hand-written kernels from romp_tpu_torch/csrc;
+ 2. build: compile the hand-written kernels from romp_tpu_torch/csrc, with
+    the chain kernels' registers, spills and shared memory (ptxas -v);
  3. kernels: each kernel against its plain PyTorch version at the main
     paths' shapes, with kernel and plain times (CUDA events, medians) and
-    the least time the card could take (bound);
+    the least time the card could take (bound); the chain at batch 1, 2
+    and 64 for each branch shape, beside the unfused mixed branch it
+    replaces (`unfused_ms`), and a check that its SASS holds tensor-core
+    instructions (HMMA / HGMMA, by cuobjdump);
  4. slices: ROMP: full-width HRNet-W32 at 512x512 (seeded random weights,
     synthetic SMPL assets) through the `ROMP` entry point on 4 images and
     through `RompPipeline` at batch 16 in four configurations. TRACE: the
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -43,8 +48,9 @@ import torch.nn.functional as F  # noqa: E402
 from romp_tpu_torch.cli.romp import ROMP, romp_settings  # noqa: E402
 from romp_tpu_torch.cli.trace import trace_settings  # noqa: E402
 from romp_tpu_torch.cli.trace_impl import build_trace_pipeline  # noqa: E402
+from romp_tpu_torch.models.hrnet import Branch  # noqa: E402
 from romp_tpu_torch.models.layers import (  # noqa: E402
-    Conv1d, Conv2d, Conv3d, LayerOpts,
+    Conv1d, Conv2d, Conv3d, LayerOpts, he_normal_,
 )
 from romp_tpu_torch.models.trace import (  # noqa: E402
     TraceNet, trace_forward_maps,
@@ -57,7 +63,7 @@ from romp_tpu_torch.ops.deform_conv import (  # noqa: E402
     deform_conv2d, deform_conv2d_plain,
 )
 from romp_tpu_torch.ops.fused_chain import (  # noqa: E402
-    basic_chain, basic_chain_plain, conv_pass, conv_pass_plain,
+    basic_chain, basic_chain_plain, conv_pass, conv_pass_plain, launch_plan,
 )
 from romp_tpu_torch.ops.lbs import skinning, skinning_plain  # noqa: E402
 from romp_tpu_torch.pipeline.romp_pipeline import (  # noqa: E402
@@ -73,6 +79,7 @@ from romp_tpu_torch.utils.profiling import (  # noqa: E402
 
 MIXED = LayerOpts(compute_dtype=torch.bfloat16)
 BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))  # (C, H) at 512x512
+CHAIN_BATCHES = (1, 2, 64)   # batch-1 latency, PR 1's rows, offline batch
 SKIN_N = (64, 4096)     # batch x max_person: 1 x 64 (CLI), 64 x 64
 V = 6890
 DEFORM = dict(B=8, C=32, H=128, W=128, G=8, Cout=32)   # TRACE's warp
@@ -161,50 +168,101 @@ def phase_kernels(dev):
             rel_err=err, ms=time_ms(lambda: skinning(a16, w, vpos)),
             plain_ms=time_ms(lambda: skinning_plain(a16, w, vpos)),
             **bounds))
-    blocks = 4
-    for C, H in BRANCHES:
-        x = torch.randn(2, C, H, H, generator=g).to(dev)
-        w = (torch.randn(blocks, 2, 3 * C, 3 * C, generator=g) * 0.05).to(
-            torch.bfloat16).to(dev)
-        sc = (1 + 0.1 * torch.randn(blocks, 2, C, generator=g)).to(dev)
-        sh = (0.1 * torch.randn(blocks, 2, C, generator=g)).to(dev)
-        # each conv pass on the same input: 5e-4 (tests/test_pallas_fuse.py:62;
-        # what is left is f32 summation order). Across passes the bf16
-        # rounding of each conv input turns that noise into a bf16 step now
-        # and then, and later convs spread it, so the whole chain is held to
-        # 5e-3 against the plain chain, and to exactly its passes.
-        y, pass_err, pass_abs = x, 0.0, 0.0
-        for n in range(blocks):
-            h = None
-            for j in range(2):
-                src, res = (y, None) if j == 0 else (h, y)
-                args = (src, w[n, j], sc[n, j], sh[n, j], res)
-                out, ref = conv_pass(*args), conv_pass_plain(*args)
-                pass_err = max(pass_err, rel_err(out, ref))
-                pass_abs = max(pass_abs, float((out - ref).abs().max()))
-                h = out
-            y = h
-        full = basic_chain(x, w, sc, sh, blocks)
-        chain_err = rel_err(full, basic_chain_plain(x, w, sc, sh, blocks))
-        check(pass_err <= 5e-4, f"chain C={C}: pass rel err {pass_err}")
-        check(torch.equal(full, y), f"chain C={C}: chain != its passes")
-        check(chain_err <= 5e-3, f"chain C={C}: chain rel err {chain_err}")
-        # 8 bf16 3x3 convs; x read once, the chain's output written once,
-        # the packed weights and BN scale / shift read once
-        bounds = bound(
-            4 * 2 * x.numel() + 2 * w.numel() + 4 * (sc.numel() + sh.numel()),
-            blocks * 2 * 2 * x.numel() * 9 * C, BF16_FLOP_PER_S)
-        rows["basic_chain"].append(dict(
-            shape=f"B=2,C={C},H=W={H},blocks=4", max_abs_err=pass_abs,
-            rel_err=pass_err, chain_rel_err=chain_err, **bounds,
-            ms=time_ms(lambda: basic_chain(x, w, sc, sh, blocks)),
-            plain_ms=time_ms(
-                lambda: basic_chain_plain(x, w, sc, sh, blocks))))
+    rows["basic_chain"] = [chain_row(dev, g, B, C, H)
+                           for B in CHAIN_BATCHES for C, H in BRANCHES]
     rows["deform_conv"].append(deform_row(dev, g))
     for name, shapes in rows.items():
         for row in shapes:
             phase(3, f"kernel {name}", **row)
+    phase(3, "chain sass", hmma_instructions=chain_sass())
     return rows
+
+
+def seeded_branch(g, C, blocks=4):
+    """An HRNet branch (`models/hrnet.py` Branch) of `blocks` BasicBlocks
+    with He-normal convs and non-trivial BatchNorm statistics, packed."""
+    br = Branch(C, blocks)
+    for m in br.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            he_normal_(m.weight, g)
+        elif isinstance(m, torch.nn.BatchNorm2d):
+            m.weight.data = 1 + 0.1 * torch.randn(C, generator=g)
+            m.bias.data = 0.1 * torch.randn(C, generator=g)
+            m.running_mean = 0.1 * torch.randn(C, generator=g)
+            m.running_var = 1 + 0.2 * torch.rand(C, generator=g)
+    br.pack()
+    return br.eval()
+
+
+def chain_row(dev, g, B, C, H, blocks=4):
+    """The chain kernel on a seeded branch's packed operands against its
+    plain version, and the unfused mixed branch (what the main path runs
+    without `fuse_chains`: cuDNN convs of bf16-rounded operands, BN,
+    ReLU, adds) timed under the pipeline's precision flags."""
+    br = seeded_branch(g, C, blocks).to(dev)
+    w, sc, sh = br.packed_w, br.packed_scale, br.packed_shift
+    x = torch.randn(B, C, H, H, generator=g).to(dev)
+    # each conv pass on the same input: 5e-4 (tests/test_pallas_fuse.py:62;
+    # what is left is f32 summation order). Across passes the bf16
+    # rounding of each conv input turns that noise into a bf16 step now
+    # and then, and later convs spread it, so the whole chain is held to
+    # 5e-3 against the plain chain, and to exactly its passes.
+    y, pass_err, pass_abs = x, 0.0, 0.0
+    for n in range(blocks):
+        h = None
+        for j in range(2):
+            src, res = (y, None) if j == 0 else (h, y)
+            args = (src, w[n, j], sc[n, j], sh[n, j], res)
+            out, ref = conv_pass(*args), conv_pass_plain(*args)
+            pass_err = max(pass_err, rel_err(out, ref))
+            pass_abs = max(pass_abs, float((out - ref).abs().max()))
+            h = out
+        y = h
+    full = basic_chain(x, w, sc, sh, blocks)
+    chain_err = rel_err(full, basic_chain_plain(x, w, sc, sh, blocks))
+    shape = f"B={B},C={C},H=W={H},blocks={blocks}"
+    check(pass_err <= 5e-4, f"chain {shape}: pass rel err {pass_err}")
+    check(torch.equal(full, y), f"chain {shape}: chain != its passes")
+    check(chain_err <= 5e-3, f"chain {shape}: chain rel err {chain_err}")
+    # 8 bf16 3x3 convs; x read once, the chain's output written once,
+    # the packed weights and BN scale / shift read once
+    bounds = bound(
+        4 * 2 * x.numel() + 2 * w.numel() + 4 * (sc.numel() + sh.numel()),
+        blocks * 2 * 2 * x.numel() * 9 * C, BF16_FLOP_PER_S)
+    with torch.inference_mode(), precision_flags(
+            RompConfig(compute_dtype="bfloat16")):
+        unfused_ms = time_ms(lambda: br(x, MIXED))
+    return dict(
+        shape=shape, batch=B, plan=launch_plan(B, C, H, H)._asdict(),
+        max_abs_err=pass_abs, rel_err=pass_err, chain_rel_err=chain_err,
+        **bounds, ms=time_ms(lambda: basic_chain(x, w, sc, sh, blocks)),
+        plain_ms=time_ms(lambda: basic_chain_plain(x, w, sc, sh, blocks),
+                         reps=10 if B > 2 else 20),
+        unfused_ms=unfused_ms)
+
+
+def chain_sass():
+    """Every instantiation of the chain's conv kernel runs on the tensor
+    cores: its SASS (cuobjdump, shipped with nvcc) holds HMMA or HGMMA
+    instructions. Fails, and does not skip, without cuobjdump."""
+    counts = _build.sass_opcodes("conv3x3_bn_act_mma_kernel",
+                                 ("HMMA", "HGMMA"))
+    check(all(n > 0 for n in counts.values()),
+          f"chain kernel without tensor-core instructions: {counts}")
+    return {demangled(k): n for k, n in counts.items()}
+
+
+def demangled(name):
+    """The kernel's name and template arguments from a mangled name, as
+    'conv3x3_bn_act_mma_kernel<16,64>'; other names as they are."""
+    for m in re.finditer(r"\d+", name):
+        ident = name[m.end():m.end() + int(m.group())]
+        if ident.endswith("_kernel"):
+            args = re.match(r"I((?:Li\d+E)+)E", name[m.end() + len(ident):])
+            if args is None:
+                return ident
+            return f"{ident}<{','.join(re.findall(r'Li(\d+)E', args[1]))}>"
+    return name
 
 
 def deform_row(dev, g):
@@ -600,7 +658,11 @@ def main():
     t0 = time.perf_counter()
     _build.load()
     phase(2, "build", seconds=time.perf_counter() - t0,
-          library=str(_build.library_path().name))
+          library=str(_build.library_path().name),
+          chain_kernels={demangled(r.pop("kernel")): r for r in
+                         _build.kernel_resources("basic_chain")},
+          chain_smem_bytes={f"C={C},B={B}": launch_plan(B, C, H, H).smem
+                            for C, H in BRANCHES for B in CHAIN_BATCHES})
 
     rows = phase_kernels(dev)
     params = seeded_params()
@@ -628,9 +690,11 @@ def main():
     kernels = []
     for name, (source, replaces) in meta.items():
         # skinning: its largest main-path shape (N = 64 x 64); the chain:
-        # the sum over the four branch shapes, one stage-4 module's chains;
-        # the deform: TRACE's shape, one launch per clip
-        timed = rows[name] if name == "basic_chain" else rows[name][-1:]
+        # the sum over the four branch shapes at B=2, one stage-4 module's
+        # chains (PR 1's definition, so the numbers compare); the deform:
+        # TRACE's shape, one launch per clip
+        timed = ([r for r in rows[name] if r["batch"] == 2]
+                 if name == "basic_chain" else rows[name][-1:])
         by_path = {"romp": romp_launches[name],
                    "trace": trace_launches[name]}
         kernels.append(dict(

@@ -46,7 +46,8 @@ from romp_tpu_torch.smpl.body_model import SmplModel, synthetic_assets
 KINDS = (
     ("skinning kernel", ("skinning_kernel",)),
     ("deform kernel", ("deform_conv_kernel",)),
-    ("chain kernel", ("conv3x3_bn_act_kernel",)),
+    ("chain kernel", ("conv3x3_bn_act_mma_kernel", "ksplit_reduce_kernel",
+                      "nchw_to_nhwc_bf16_kernel")),
     ("batch norm", ("bn_fw", "batch_norm")),
     ("conv (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "cudnn",
                                "fft", "pointwise_mult_and_sum_complex")),

@@ -16,8 +16,9 @@ from romp_tpu.ops.pallas_fuse import (
 from romp_tpu_torch.models.hrnet import HRModule
 from romp_tpu_torch.models.layers import LayerOpts
 from romp_tpu_torch.ops.fused_chain import (
-    basic_chain, basic_chain_plain, conv_pass, conv_pass_plain,
-    pack_chain_weights,
+    CHUNK, MIN_CTAS, SMEM_LIMIT, TILE_W, TILES, basic_chain,
+    basic_chain_plain, conv_pass, conv_pass_plain, launch_plan,
+    pack_chain_weights, smem_bytes,
 )
 from romp_tpu_torch.utils.checkpoint import state_dict_from_jax
 
@@ -136,3 +137,35 @@ def test_hr_module_fused_matches_unfused():
                                      fuse_chains=True))
     for a, b in zip(base, fused):
         assert _rel_err(b, a) < 2e-3
+
+
+HRNET_BRANCHES = [(32, 128), (64, 64), (128, 32), (256, 16)]  # (C, H)
+
+
+@pytest.mark.parametrize("B", [1, 2, 64])
+@pytest.mark.parametrize("C,H", HRNET_BRANCHES)
+def test_launch_plan_fills_the_card_at_hrnet_shapes(B, C, H):
+    """At every 512x512 HRNet branch shape, batch 1, 2 and 64: the plan
+    fits a block's shared memory, its K split tiles the chunks of K
+    exactly, and it gives at least 128 CTAs (about one wave of the H100's
+    132 SMs)."""
+    _check_plan(B, C, H, H)
+    assert launch_plan(B, C, H, H).ctas >= MIN_CTAS
+
+
+@pytest.mark.parametrize("B,C,H,W", [(1, 16, 13, 7), (2, 40, 20, 33),
+                                     (1, 16, 8, 8), (3, 8, 1, 1)])
+def test_launch_plan_ragged_shapes(B, C, H, W):
+    _check_plan(B, C, H, W)
+
+
+def _check_plan(B, C, H, W):
+    plan = launch_plan(B, C, H, W)
+    assert (plan.tile_h, plan.tile_n) in TILES
+    assert plan.smem == smem_bytes(plan.tile_h, plan.tile_n) <= SMEM_LIMIT
+    chunks = -(-C // CHUNK)
+    assert plan.ksplit >= 1 and chunks % plan.ksplit == 0
+    assert plan.ctas == (B * -(-H // plan.tile_h) * -(-W // TILE_W)
+                         * -(-C // plan.tile_n) * plan.ksplit)
+    assert plan.tile_n == 32 or C % plan.tile_n == 0
+

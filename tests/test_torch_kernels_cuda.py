@@ -57,12 +57,15 @@ def _chain_operands(g, blocks, C, dev):
 
 
 @pytest.mark.parametrize("B,C,H,W", [(2, 32, 128, 128), (2, 256, 16, 16),
-                                     (1, 16, 13, 7), (2, 40, 20, 33)])
+                                     (1, 16, 13, 7), (2, 40, 20, 33),
+                                     (64, 32, 128, 128), (1, 256, 16, 16)])
 def test_chain_kernel_matches_plain(dev, B, C, H, W):
     """Each conv pass on the same input within 5e-4 relative
     (tests/test_pallas_fuse.py:62). Across passes the bf16 rounding of each
     conv input turns f32 summation-order noise into a bf16 step now and
-    then, so the whole chain is held to 5e-3, and to exactly its passes."""
+    then, so the whole chain is held to 5e-3, and to exactly its passes.
+    (2, 40, 20, 33) and (1, 256, 16, 16) take the K-split plan (second,
+    reducing kernel); (64, 32, 128, 128) is the large-batch plan."""
     g = torch.Generator().manual_seed(C + H)
     blocks = 4
     x = torch.randn(B, C, H, W, generator=g).to(dev)
@@ -84,6 +87,22 @@ def test_chain_kernel_matches_plain(dev, B, C, H, W):
         full = basic_chain(x, w, sc, sh, blocks)
         assert torch.equal(full, y)
         assert _rel(full, basic_chain_plain(x, w, sc, sh, blocks)) <= 5e-3
+
+
+def test_chain_kernel_rejects_bad_operands(dev):
+    g = torch.Generator().manual_seed(5)
+    w, sc, sh = _chain_operands(g, 1, 12, dev)
+    x = torch.zeros(1, 12, 8, 8, device=dev)
+    with pytest.raises(ValueError):       # C not a multiple of 8
+        basic_chain(x, w, sc, sh, 1)
+    w, sc, sh = _chain_operands(g, 1, 16, dev)
+    x = torch.zeros(1, 16, 8, 8, device=dev)
+    with pytest.raises(ValueError):       # f32 weights
+        conv_pass(x, w[0, 0].float(), sc[0, 0], sh[0, 0])
+    with pytest.raises(ValueError):       # non-contiguous input
+        conv_pass(x.transpose(2, 3), w[0, 0], sc[0, 0], sh[0, 0])
+    with pytest.raises(ValueError):       # residual of another shape
+        conv_pass(x, w[0, 0], sc[0, 0], sh[0, 0], residual=x[:, :8])
 
 
 @pytest.mark.parametrize("B,C,H,W,G,Cout", [(8, 32, 128, 128, 8, 32),
