@@ -6,12 +6,17 @@ path) once on one GPU.
 Phases, one line each; any failure raises and the exit code is nonzero:
  1. device: a CUDA device is required (nothing here runs on the CPU instead);
  2. build: compile the hand-written kernels from romp_tpu_torch/csrc, with
-    the chain kernels' registers, spills and shared memory (ptxas -v);
+    the chain, skinning and deform kernels' registers, spills and static
+    shared memory (ptxas -v), and their dynamic shared memory;
  3. kernels: each kernel against its plain PyTorch version at the main
-    paths' shapes, with kernel and plain times (CUDA events, medians) and
-    the least time the card could take (bound); the chain at batch 1, 2
-    and 64 for each branch shape, beside the unfused mixed branch it
-    replaces (`unfused_ms`), and a check that its SASS holds tensor-core
+    paths' shapes, with kernel and plain times (CUDA events, medians), the
+    kernel's device time (torch.profiler) and the least time the card could
+    take (bound; for skinning and the deform read both for the split-TF32
+    tensor-core work and, as the CUDA-core kernels were, for f32);
+    skinning at N = 64, 1024 and 4096 (the CLI, batch 16 and batch 64 x 64
+    slots); the chain at batch 1, 2 and 64 for each branch shape, beside
+    the unfused mixed branch it replaces (`unfused_ms`); and a check that
+    the SASS of every chain, skinning and deform kernel holds tensor-core
     instructions (HMMA / HGMMA, by cuobjdump);
  4. slices: ROMP: full-width HRNet-W32 at 512x512 (seeded random weights,
     synthetic SMPL assets) through the `ROMP` entry point on 4 images and
@@ -60,12 +65,14 @@ from romp_tpu_torch.ops.centermap import (  # noqa: E402
     nms_heatmap, nms_heatmap3d, parse_centermap3d,
 )
 from romp_tpu_torch.ops.deform_conv import (  # noqa: E402
-    deform_conv2d, deform_conv2d_plain,
+    deform_conv2d, deform_conv2d_plain, deform_smem,
 )
 from romp_tpu_torch.ops.fused_chain import (  # noqa: E402
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain, launch_plan,
 )
-from romp_tpu_torch.ops.lbs import skinning, skinning_plain  # noqa: E402
+from romp_tpu_torch.ops.lbs import (  # noqa: E402
+    skinning, skinning_plain, skinning_plan,
+)
 from romp_tpu_torch.pipeline.romp_pipeline import (  # noqa: E402
     RompConfig, RompPipeline, precision_flags,
 )
@@ -73,6 +80,8 @@ from romp_tpu_torch.pipeline.trace_pipeline import TraceConfig  # noqa: E402
 from romp_tpu_torch.smpl.body_model import (  # noqa: E402
     SmplModel, synthetic_assets,
 )
+from romp_tpu_torch.utils.chain_plans import device_events  # noqa: E402
+from romp_tpu_torch.utils.kernel_breakdown import warm_clocks  # noqa: E402
 from romp_tpu_torch.utils.profiling import (  # noqa: E402
     seeded_params, seeded_trace_params,
 )
@@ -80,13 +89,14 @@ from romp_tpu_torch.utils.profiling import (  # noqa: E402
 MIXED = LayerOpts(compute_dtype=torch.bfloat16)
 BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))  # (C, H) at 512x512
 CHAIN_BATCHES = (1, 2, 64)   # batch-1 latency, PR 1's rows, offline batch
-SKIN_N = (64, 4096)     # batch x max_person: 1 x 64 (CLI), 64 x 64
+SKIN_N = (64, 1024, 4096)   # batch x max_person: 1, 16 and 64 x 64
 V = 6890
 DEFORM = dict(B=8, C=32, H=128, W=128, G=8, Cout=32)   # TRACE's warp
 TRACE_CLIP = 8
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 
 
@@ -127,16 +137,47 @@ def check(cond, what):
         raise AssertionError(what)
 
 
-def bound(nbytes, flops, flop_rate):
+def bound(nbytes, *ops):
     """The least time the card could take: each input read once and each
-    output written once at the memory rate, against the operations at the
-    peak rate for their type. A dict of bound_ms, bound_by and both
-    times."""
+    output written once at the memory rate, against the operations, each
+    (flops, rate) term at the peak rate for its type. A dict of bound_ms,
+    bound_by and both times."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flop_rate * 1e3
+    t_ops = sum(flops / rate for flops, rate in ops) * 1e3
     return dict(bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes_ms=t_bytes, operations_ms=t_ops)
+
+
+def split_tf32_bounds(nbytes, products, remainder):
+    """Both readings of a split-TF32 kernel's bound: as the kernel works
+    (its products three times over at the TF32 rate, the rest in f32), and
+    as for a CUDA-core kernel (all of it in f32, `f32_`)."""
+    tc = bound(nbytes, (3 * products, TF32_FLOP_PER_S),
+               (remainder, F32_FLOP_PER_S))
+    f32 = bound(nbytes, (products + remainder, F32_FLOP_PER_S))
+    return dict(**tc, **{f"f32_{k}": v for k, v in f32.items()
+                         if k != "bytes_ms"})
+
+
+def device_ms(fn, launches, calls=20, tries=3):
+    """Device time of one fn() in ms, from torch.profiler: for each kernel
+    name of `launches` (substring -> launches a call), the mean time of its
+    kernels times its launches a call. The profiler may miss some of a
+    run's kernels, so their count is not read from it, and now and then
+    all of one name's: such a run is made again, and after `tries` of them
+    the device time is None (a reading, not a check of the kernel)."""
+    for _ in range(tries):
+        events = device_events(fn, calls)
+        us = {key: [e.time_range.elapsed_us() for e in events
+                    if key in e.name] for key in launches}
+        if all(us.values()):
+            return sum(statistics.mean(v) * launches[key]
+                       for key, v in us.items()) / 1e3
+    missing = sorted(key for key, v in us.items() if not v)
+    print(f"device time: the profiler saw no kernel named {missing} in "
+          f"{tries} runs", file=sys.stderr)
+    return None
 
 
 def smi_line():
@@ -147,6 +188,7 @@ def smi_line():
 
 
 def phase_kernels(dev):
+    warm_clocks(dev)      # the card idled through the build
     g = torch.Generator().manual_seed(0)
     rows = {"skinning": [], "basic_chain": [], "deform_conv": []}
     for n in SKIN_N:
@@ -161,11 +203,15 @@ def phase_kernels(dev):
         check(err <= 1e-4, f"skinning N={n}: rel err {err}")
         # 12 rows of T16 (24 FMAs each) and the 3x4 apply per (person,
         # vertex); a16, W and v_posed read once, verts written once
-        bounds = bound(4 * (n * 16 * 24 + V * 24 + 2 * n * 3 * V),
-                       n * V * (2 * 12 * 24 + 18), F32_FLOP_PER_S)
+        bounds = split_tf32_bounds(
+            4 * (n * 16 * 24 + V * 24 + 2 * n * 3 * V),
+            n * V * 2 * 12 * 24, n * V * 18)
         rows["skinning"].append(dict(
-            shape=f"N={n},V={V}", max_abs_err=float((out - ref).abs().max()),
+            shape=f"N={n},V={V}", plan=skinning_plan(n, V)._asdict(),
+            max_abs_err=float((out - ref).abs().max()),
             rel_err=err, ms=time_ms(lambda: skinning(a16, w, vpos)),
+            device_ms=device_ms(lambda: skinning(a16, w, vpos),
+                                {"skinning_tf32_kernel": 1}),
             plain_ms=time_ms(lambda: skinning_plain(a16, w, vpos)),
             **bounds))
     rows["basic_chain"] = [chain_row(dev, g, B, C, H)
@@ -174,7 +220,7 @@ def phase_kernels(dev):
     for name, shapes in rows.items():
         for row in shapes:
             phase(3, f"kernel {name}", **row)
-    phase(3, "chain sass", hmma_instructions=chain_sass())
+    phase(3, "sass", hmma_instructions=tensor_core_sass())
     return rows
 
 
@@ -228,40 +274,59 @@ def chain_row(dev, g, B, C, H, blocks=4):
     # the packed weights and BN scale / shift read once
     bounds = bound(
         4 * 2 * x.numel() + 2 * w.numel() + 4 * (sc.numel() + sh.numel()),
-        blocks * 2 * 2 * x.numel() * 9 * C, BF16_FLOP_PER_S)
+        (blocks * 2 * 2 * x.numel() * 9 * C, BF16_FLOP_PER_S))
     with torch.inference_mode(), precision_flags(
             RompConfig(compute_dtype="bfloat16")):
         unfused_ms = time_ms(lambda: br(x, MIXED))
+    plan = launch_plan(B, C, H, H)
+    kernels = {"conv3x3_bn_act_mma_kernel": 2 * blocks,
+               "nchw_to_nhwc_bf16_kernel": 1}
+    if plan.ksplit > 1:
+        kernels["ksplit_reduce_kernel"] = 2 * blocks
     return dict(
-        shape=shape, batch=B, plan=launch_plan(B, C, H, H)._asdict(),
+        shape=shape, batch=B, plan=plan._asdict(),
         max_abs_err=pass_abs, rel_err=pass_err, chain_rel_err=chain_err,
         **bounds, ms=time_ms(lambda: basic_chain(x, w, sc, sh, blocks)),
+        device_ms=device_ms(lambda: basic_chain(x, w, sc, sh, blocks),
+                            kernels),
         plain_ms=time_ms(lambda: basic_chain_plain(x, w, sc, sh, blocks),
                          reps=10 if B > 2 else 20),
         unfused_ms=unfused_ms)
 
 
-def chain_sass():
-    """Every instantiation of the chain's conv kernel runs on the tensor
-    cores: its SASS (cuobjdump, shipped with nvcc) holds HMMA or HGMMA
-    instructions. Fails, and does not skip, without cuobjdump."""
-    counts = _build.sass_opcodes("conv3x3_bn_act_mma_kernel",
-                                 ("HMMA", "HGMMA"))
-    check(all(n > 0 for n in counts.values()),
-          f"chain kernel without tensor-core instructions: {counts}")
-    return {demangled(k): n for k, n in counts.items()}
+TENSOR_CORE_KERNELS = ("conv3x3_bn_act_mma_kernel", "skinning_tf32_kernel",
+                       "deform_conv_tf32_kernel")
+
+
+def tensor_core_sass():
+    """Every instantiation of the chain's conv kernel, of the skinning
+    kernel and of the deform kernel runs on the tensor cores: its SASS
+    (cuobjdump, shipped with nvcc) holds HMMA or HGMMA instructions. Fails,
+    and does not skip, without cuobjdump."""
+    out = {}
+    for name in TENSOR_CORE_KERNELS:
+        counts = _build.sass_opcodes(name, ("HMMA", "HGMMA"))
+        check(all(n > 0 for n in counts.values()),
+              f"{name} without tensor-core instructions: {counts}")
+        out.update({demangled(k): n for k, n in counts.items()})
+    return out
 
 
 def demangled(name):
     """The kernel's name and template arguments from a mangled name, as
     'conv3x3_bn_act_mma_kernel<16,64>'; other names as they are."""
     for m in re.finditer(r"\d+", name):
-        ident = name[m.end():m.end() + int(m.group())]
-        if ident.endswith("_kernel"):
-            args = re.match(r"I((?:Li\d+E)+)E", name[m.end() + len(ident):])
-            if args is None:
-                return ident
-            return f"{ident}<{','.join(re.findall(r'Li(\d+)E', args[1]))}>"
+        # the length prefix may follow other digits (a hash in the
+        # anonymous namespace's name): try each tail of the digit run
+        for k in range(len(m.group())):
+            ident = name[m.end():m.end() + int(m.group()[k:])]
+            if re.fullmatch(r"[A-Za-z_]\w*_kernel", ident):
+                rest = name[m.end() + len(ident):]
+                args = re.match(r"I((?:Li\d+E)+)E", rest)
+                if args is None:
+                    return ident
+                return (f"{ident}<"
+                        f"{','.join(re.findall(r'Li(\d+)E', args[1]))}>")
     return name
 
 
@@ -287,13 +352,18 @@ def deform_row(dev, g):
     # x and offsets read once, the output written once; per output pixel,
     # group and tap: a 4-corner bilinear blend of Cg channels (8 FLOP each)
     # and the contraction of the C samples with Cout weights
-    bounds = bound(4 * (x.numel() + off.numel() + w.numel() + out.numel()),
-                   B * H * W * 9 * C * (2 * Cout + 8), F32_FLOP_PER_S)
+    bounds = split_tf32_bounds(
+        4 * (x.numel() + off.numel() + w.numel() + out.numel()),
+        B * H * W * 9 * C * 2 * Cout, B * H * W * 9 * C * 8)
     return dict(
         shape=f"B={B},C={C},H=W={H},G={G},Cout={Cout}",
         max_abs_err=float((out - ref).abs().max()), rel_err=err,
         zero_offset_rel_err=zero_err,
         ms=time_ms(lambda: deform_conv2d(x, off, w, G)),
+        # the prologue (x regrouped, weights split) and the kernel
+        device_ms=device_ms(lambda: deform_conv2d(x, off, w, G),
+                            {"deform_prep_kernel": 1,
+                             "deform_conv_tf32_kernel": 1}),
         plain_ms=time_ms(lambda: deform_conv2d_plain(x, off, w, G), reps=10),
         **bounds)
 
@@ -662,7 +732,15 @@ def main():
           chain_kernels={demangled(r.pop("kernel")): r for r in
                          _build.kernel_resources("basic_chain")},
           chain_smem_bytes={f"C={C},B={B}": launch_plan(B, C, H, H).smem
-                            for C, H in BRANCHES for B in CHAIN_BATCHES})
+                            for C, H in BRANCHES for B in CHAIN_BATCHES},
+          skinning_kernels={demangled(r.pop("kernel")): r for r in
+                            _build.kernel_resources("skinning")},
+          skinning_smem_bytes={f"N={n}": skinning_plan(n, V).smem
+                               for n in SKIN_N},
+          deform_kernels={demangled(r.pop("kernel")): r for r in
+                          _build.kernel_resources("deform")},
+          deform_smem_bytes=deform_smem(DEFORM["G"],
+                                        DEFORM["C"] // DEFORM["G"]))
 
     rows = phase_kernels(dev)
     params = seeded_params()
@@ -697,16 +775,20 @@ def main():
                  if name == "basic_chain" else rows[name][-1:])
         by_path = {"romp": romp_launches[name],
                    "trace": trace_launches[name]}
+        device = [r["device_ms"] for r in timed]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(r["max_abs_err"] for r in rows[name]),
             ms=sum(r["ms"] for r in timed),
+            device_ms=None if None in device else sum(device),
             plain_ms=sum(r["plain_ms"] for r in timed),
             bound_ms=sum(r["bound_ms"] for r in timed),
             bound_by=max(timed, key=lambda r: r["bound_ms"])["bound_by"],
             library_ms=None,    # no single PyTorch call computes it
-            shape="; ".join(r["shape"] for r in timed)))
+            shape="; ".join(r["shape"] for r in timed),
+            **({"f32_bound_ms": sum(r["f32_bound_ms"] for r in timed)}
+               if "f32_bound_ms" in timed[0] else {})))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -35,11 +35,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points: name -> argtypes (every pointer and the stream as void*).
 SIGNATURES = {
-    "romp_skinning_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "romp_skinning_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "romp_conv3x3_bn_act": [_P] * 8 + [_I] * 8 + [_P],
     "romp_basic_chain": [_P] * 9 + [_I] * 9 + [_P],
-    "romp_deform_conv2d_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _P],
+    "romp_deform_conv2d_f32": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -11,8 +11,10 @@ layout, which is the port's NCHW:
 
 Stride 1, dilation 1, no mask, no bias; bilinear sampling with zero outside
 the image, each of the four corners checked on its own. The kernel is
-`romp_tpu_torch/csrc/deform_conv.cu`. Forward only: the backward comes with
-the training slice.
+`romp_tpu_torch/csrc/deform_conv.cu`: samples gathered into shared memory,
+contracted on the tensor cores in split TF32 (`ops/lbs.py` `tf32_round` and
+`split_tf32_matmul` model that arithmetic). Forward only: the backward
+comes with the training slice.
 """
 from __future__ import annotations
 
@@ -21,6 +23,26 @@ import torch
 from romp_tpu_torch.ops import _build
 
 TAPS = 9
+# csrc/deform_conv.cu: K columns a chunk, output channels a CTA, float4 B
+# fragments a chunk
+CHUNK_COLS = 32
+N_TILE = 32
+FRAGS = 4 * 4 * 32
+
+
+def deform_smem(G: int, Cg: int) -> int:
+    """csrc/deform_conv.cu `smem_bytes`: three chunks of weight fragments,
+    two of samples (128 pixels x CHUNK_COLS f32) and two of the offset
+    planes of the groups a chunk touches (at most G)."""
+    ngc = min(G, (CHUNK_COLS - 1) // Cg + 2)
+    return 3 * FRAGS * 16 + (2 * 128 * CHUNK_COLS + 2 * 2 * ngc * 128) * 4
+
+
+def scratch_floats(B: int, C: int, H: int, W: int, Cout: int) -> int:
+    """The kernel's scratch: the split weight fragments of every
+    output-channel tile and chunk, then x regrouped as (B, G, H*W, C/G)."""
+    return (-(-Cout // N_TILE) * TAPS * -(-C // CHUNK_COLS) * FRAGS * 4
+            + B * C * H * W)
 
 
 def deform_conv2d_plain(x: torch.Tensor, offsets: torch.Tensor,
@@ -89,11 +111,13 @@ def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((B, Cout, H, W), dtype=torch.float32, device=x.device)
     if B == 0 or H * W == 0:
         return out
+    scratch = torch.empty(scratch_floats(B, C, H, W, Cout),
+                          dtype=torch.float32, device=x.device)
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.romp_deform_conv2d_f32(
             x.data_ptr(), offsets.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), B, C, H, W, G, Cout, padding,
+            out.data_ptr(), scratch.data_ptr(), B, C, H, W, G, Cout, padding,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "romp_deform_conv2d_f32")
     deform_conv2d.launches += 1

@@ -44,8 +44,8 @@ from romp_tpu_torch.smpl.body_model import SmplModel, synthetic_assets
 
 # kind of kernel -> substrings of its name; the first match wins
 KINDS = (
-    ("skinning kernel", ("skinning_kernel",)),
-    ("deform kernel", ("deform_conv_kernel",)),
+    ("skinning kernel", ("skinning_tf32_kernel",)),
+    ("deform kernel", ("deform_conv_tf32_kernel", "deform_prep_kernel")),
     ("chain kernel", ("conv3x3_bn_act_mma_kernel", "ksplit_reduce_kernel",
                       "nchw_to_nhwc_bf16_kernel")),
     ("batch norm", ("bn_fw", "batch_norm")),

@@ -11,7 +11,10 @@ import jax.numpy as jnp
 
 from romp_tpu.ops.deform_conv import deform_conv2d as jax_deform
 from romp_tpu.ops.pallas_deform import deform_conv2d_pallas
-from romp_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
+from romp_tpu_torch.ops.deform_conv import (
+    deform_conv2d, deform_conv2d_plain, deform_smem, scratch_floats,
+)
+from romp_tpu_torch.ops.lbs import split_tf32_matmul
 
 torch.set_num_threads(2)
 
@@ -109,3 +112,41 @@ def test_cpu_tensors_take_the_plain_version():
     assert torch.equal(deform_conv2d(*args, deform_groups=2),
                        deform_conv2d_plain(*args, deform_groups=2))
     assert deform_conv2d.launches == before
+
+
+# --- the kernel's arithmetic and buffers (csrc/deform_conv.cu) ------------
+
+def test_split_tf32_meets_the_bar_where_one_tf32_product_misses():
+    """K = 9 x 32 (TRACE's taps x channels): the samples (bilinear blends of
+    N(0, 1) features) against 0.1 N(0, 1) weights, as in chip_smoke.py. The
+    3-term split product lands within 1e-5 of max|ref| of the f32 product;
+    one TF32 product does not."""
+    rng = np.random.RandomState(4)
+    corners = rng.randn(4, 4096, 288).astype(np.float32)
+    wts = rng.dirichlet(np.ones(4), size=(4096, 288)).astype(np.float32)
+    samples = torch.from_numpy(np.einsum("cpk,pkc->pk", corners, wts)
+                               .astype(np.float32))
+    w = torch.from_numpy((rng.randn(288, 32) * 0.1).astype(np.float32))
+    ref = samples.double() @ w.double()
+    scale = float(ref.abs().max())
+    err3 = float((split_tf32_matmul(samples, w).double() - ref).abs().max())
+    err1 = float((split_tf32_matmul(samples, w, terms=1).double() - ref)
+                 .abs().max())
+    assert err3 <= 1e-5 * scale
+    assert err1 > 1e-5 * scale
+
+
+@pytest.mark.parametrize("C,G", [(32, 8), (16, 2), (12, 3), (40, 4), (64, 64),
+                                 (256, 8), (6, 6)])
+def test_deform_buffers(C, G):
+    """Shared memory within the 232,448 bytes a CTA may take for any group
+    width (at TRACE's C = 32, G = 8: 72 KB, so three CTAs share an SM);
+    the scratch holds the weight fragments and x regrouped."""
+    smem = deform_smem(G, C // G)
+    assert smem <= 232448
+    if (C, G) == (32, 8):
+        assert 3 * (smem + 1024) <= 228 * 1024
+    B, H, W, Cout = 2, 9, 17, 24
+    frags = -(-Cout // 32) * 9 * -(-C // 32) * 4 * 4 * 32 * 4
+    assert scratch_floats(B, C, H, W, Cout) == frags + B * C * H * W
+    assert frags % 4 == 0       # x's regrouped copy starts 16-byte aligned

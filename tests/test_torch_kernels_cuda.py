@@ -26,8 +26,13 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("N,V", [(3, 1000), (64, 6890), (13, 129)])
+@pytest.mark.parametrize("N,V", [(3, 1000), (64, 6890), (13, 129),
+                                 (1, 129), (1, 6890), (13, 6890),
+                                 (4096, 129), (4096, 6890)])
 def test_skinning_kernel_matches_plain(dev, N, V):
+    """Ragged person and vertex tiles (N = 1, 13; V = 129, 1000, 6890:
+    16-byte and 8-byte aligned v_posed rows) and the main path's shapes.
+    Bar 1e-4 of max|ref|: split TF32 keeps about 1e-7."""
     g = torch.Generator().manual_seed(N)
     a16 = torch.randn(N, 16, 24, generator=g).to(dev)
     w = torch.rand(V, 24, generator=g).to(dev)
@@ -106,11 +111,15 @@ def test_chain_kernel_rejects_bad_operands(dev):
 
 
 @pytest.mark.parametrize("B,C,H,W,G,Cout", [(8, 32, 128, 128, 8, 32),
-                                            (3, 12, 13, 29, 3, 40)])
+                                            (3, 12, 13, 29, 3, 40),
+                                            (2, 16, 9, 17, 2, 24),
+                                            (1, 40, 7, 9, 4, 8),
+                                            (1, 64, 7, 9, 8, 40)])
 def test_deform_kernel_matches_plain(dev, B, C, H, W, G, Cout):
-    """TRACE's shape, and a ragged one (pixel tail, two output tiles, Cg=4
-    of 3 groups). Offsets N(0, 2^2) cross the border. Bar 1e-4 of max|ref|:
-    f32 summation order."""
+    """TRACE's shape, and ragged ones: pixel tails, two output tiles, Cg=4
+    of 3 groups; Cg = 8 (float4 gathers, width read at run time) and Cg =
+    10 (scalar gathers) over two 32-channel chunks. Offsets N(0, 2^2) cross
+    the border. Bar 1e-4 of max|ref|: split TF32 keeps about 1e-6."""
     g = torch.Generator().manual_seed(B * C + H)
     x = torch.randn(B, C, H, W, generator=g).to(dev)
     off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)

@@ -11,7 +11,10 @@ from romp_tpu.ops.pallas_lbs import skinning_pallas, skinning_xla
 from romp_tpu.smpl.assets import synthetic_assets
 from romp_tpu.smpl.body_model import SmplModel as JaxSmpl
 from romp_tpu.smpl.body_model import smpl_forward as jax_smpl_forward
-from romp_tpu_torch.ops.lbs import skinning, skinning_plain
+from romp_tpu_torch.ops.lbs import (
+    CHUNK, MAX_SMEM, WARP_VERTS, skinning, skinning_plain, skinning_plan,
+    skinning_smem, split_tf32_matmul, tf32_round,
+)
 from romp_tpu_torch.smpl.body_model import SmplModel, smpl_forward
 
 torch.set_num_threads(2)
@@ -64,3 +67,67 @@ def test_smpl_forward_matches_jax(smpl_pair, root_align):
     # the bar the JAX package holds against the reference (README.md:43)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), atol=1e-4)
     np.testing.assert_allclose(tj.numpy(), np.asarray(jj), atol=1e-4)
+
+
+# --- the kernel's arithmetic and launch plan (csrc/lbs.cu) ---------------
+
+def test_tf32_round_is_round_to_nearest_ties_away():
+    ulp = 2.0 ** -10                      # TF32 keeps 10 mantissa bits
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + 3 * ulp / 2, 1 + ulp / 2 - 2 ** -20,
+                      -(1 + ulp / 2), 2.0 ** -130, 0.0], dtype=torch.float32)
+    want = [1.0, 1 + ulp, 1 + 2 * ulp, 1.0, -(1 + ulp), 2.0 ** -130, 0.0]
+    assert tf32_round(x).tolist() == want
+    # every result has its 13 low mantissa bits clear, within half an ulp
+    r = torch.from_numpy(np.random.RandomState(0).randn(10000)
+                         .astype(np.float32)) * 1e3
+    t = tf32_round(r)
+    assert int((t.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert float(((t - r).abs() / r.abs()).max()) <= 2.0 ** -11
+
+
+def _skinning_operands(rows, V, seed=0):
+    # the statistics of chip_smoke.py: A16 rows N(0, 1), LBS weights
+    # uniform and normalized to sum 1 over the joints
+    rng = np.random.RandomState(seed)
+    a = torch.from_numpy(rng.randn(rows, 24).astype(np.float32))
+    w = rng.rand(V, 24).astype(np.float32)
+    w /= w.sum(1, keepdims=True)
+    return a, torch.from_numpy(w).t().contiguous()
+
+
+def test_split_tf32_meets_the_bar_where_one_tf32_product_misses():
+    """K = 24 (the skinning's joints): the 3-term split product within 1e-5
+    of max|ref| of the f32 product; one TF32 product is not."""
+    a, wt = _skinning_operands(1536, 2000)
+    ref = (a.double() @ wt.double())
+    scale = float(ref.abs().max())
+    err3 = float((split_tf32_matmul(a, wt).double() - ref).abs().max())
+    err1 = float((split_tf32_matmul(a, wt, terms=1).double() - ref)
+                 .abs().max())
+    assert err3 <= 1e-5 * scale
+    assert err1 > 1e-5 * scale
+
+
+@pytest.mark.parametrize("N", [1, 8, 64, 1024, 4096])
+@pytest.mark.parametrize("V", [6890, 129, 1000])
+def test_skinning_plan(N, V):
+    """Tiles cover N and V with no empty tile; shared memory within the
+    232,448 bytes a CTA may take; the card has at least one CTA per SM
+    (132) wherever N and V give that many 32-vertex x 4-person tiles."""
+    p = skinning_plan(N, V)
+    vt = p.warps * WARP_VERTS
+    assert 1 <= p.warps <= 8 and p.persons % CHUNK == 0
+    assert p.grid_v * vt >= V > (p.grid_v - 1) * vt
+    assert p.grid_n * p.persons >= N > (p.grid_n - 1) * p.persons
+    assert p.smem == skinning_smem(p.warps) <= MAX_SMEM
+    tiles = -(-V // WARP_VERTS) * -(-N // CHUNK)
+    assert p.ctas >= min(132, tiles)
+
+
+def test_skinning_plan_at_the_main_path_shapes():
+    """The CLI (N = 64) and batch 64 x 64 slots (N = 4096) at V = 6890 fill
+    the card with full 8-warp CTAs; at 4096 each CTA takes 32 persons."""
+    for N in (64, 4096):
+        p = skinning_plan(N, 6890)
+        assert p.warps == 8 and p.ctas >= 2 * 132
+    assert skinning_plan(4096, 6890).persons == 32
