@@ -1,5 +1,5 @@
-"""Drive the PyTorch + CUDA port (the ROMP image path and the TRACE video
-path) once on one GPU.
+"""Drive the PyTorch + CUDA port (the ROMP and BEV image paths and the
+TRACE video path, with and without RAFT's optical flow) once on one GPU.
 
     python3 chip_smoke.py
 
@@ -18,19 +18,28 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     the unfused mixed branch it replaces (`unfused_ms`); and a check that
     the SASS of every chain, skinning and deform kernel holds tensor-core
     instructions (HMMA / HGMMA, by cuobjdump);
- 4. slices: ROMP: full-width HRNet-W32 at 512x512 (seeded random weights,
-    synthetic SMPL assets) through the `ROMP` entry point on 4 images and
-    through `RompPipeline` at batch 16 in four configurations. TRACE: the
-    `trace2` CLI's own pipeline (`build_trace_pipeline`, 128x128 maps,
-    8-frame clips, seeded weights, synthetic SMPL-A / SMIL) on three clips
-    through `process_stream`, mixed path and f32. Each path's kernel
-    launch counters are zeroed just before it and read just after;
+ 4. slices, full width with seeded random weights and synthetic SMPL
+    assets. ROMP: HRNet-W32 at 512x512 through the `ROMP` entry point on 4
+    images and through `RompPipeline` at batch 16 in four configurations.
+    TRACE: the `trace2` CLI's own pipeline (`build_trace_pipeline`, 128x128
+    maps, 8-frame clips) on three clips through `process_stream`, mixed
+    path and f32 with zero flow, then with a RAFT weights file (the CLI's
+    RAFT branch: 512x512, 20 iterations, bf16, sequence form). BEV:
+    HRNet-W32 at 512x512 with 128x128x64 3D maps, through the `BEV` entry
+    point on 2 images and through `BevPipeline` at batch 1 and 16, mixed
+    path, unfused and with `fuse_chains`. Each path's kernel launch
+    counters are zeroed just before it and read just after;
  5. card vs CPU: the same weights and inputs through the port on the CPU
-    (plain versions) and on the card (kernels), f32 with TF32 off; then the
-    mixed path, every conv of the net against the CPU's (ROMP at batches 1,
-    16 and 64 and the whole net's maps; TRACE on one 2-frame clip);
+    (plain versions) and on the card (kernels), f32 with TF32 off (ROMP,
+    TRACE's head, RAFT on one 256x256 pair at 12 iterations, BEV's maps and
+    its parameters at the detected slots at batch 1); then the mixed path,
+    every conv of the net against the CPU's (ROMP at batches 1, 16 and 64
+    and the whole net's maps; TRACE on one 2-frame clip; BEV at batch 1);
  6. time: ROMP img/s; TRACE s per 8-frame clip and frames/s at steady state
-    through `process_stream`, with a per-stage split.
+    through `process_stream`, zero flow and with RAFT, with a per-stage
+    split (RAFT's in the synced `flow` stage) and RAFT alone under the
+    profiler (device-busy ms and kernels a clip); BEV img/s at batch 16 and
+    batch-1 latency, unfused and fused.
 Then the kernels' JSON line, the card's name and power limit, and the
 result line.
 """
@@ -50,12 +59,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from romp_tpu_torch.cli.bev import BEV, bev_settings  # noqa: E402
 from romp_tpu_torch.cli.romp import ROMP, romp_settings  # noqa: E402
 from romp_tpu_torch.cli.trace import trace_settings  # noqa: E402
 from romp_tpu_torch.cli.trace_impl import build_trace_pipeline  # noqa: E402
+from romp_tpu_torch.models.bev import (  # noqa: E402
+    BevNet, bev_forward_maps, bev_head_maps, bev_regress_params,
+)
 from romp_tpu_torch.models.hrnet import Branch  # noqa: E402
 from romp_tpu_torch.models.layers import (  # noqa: E402
     Conv1d, Conv2d, Conv3d, LayerOpts, he_normal_,
+)
+from romp_tpu_torch.models.raft import (  # noqa: E402
+    Raft, init_raft_params, raft_forward,
 )
 from romp_tpu_torch.models.trace import (  # noqa: E402
     TraceNet, trace_forward_maps,
@@ -73,6 +89,9 @@ from romp_tpu_torch.ops.fused_chain import (  # noqa: E402
 from romp_tpu_torch.ops.lbs import (  # noqa: E402
     skinning, skinning_plain, skinning_plan,
 )
+from romp_tpu_torch.pipeline.bev_pipeline import (  # noqa: E402
+    BevConfig, BevPipeline,
+)
 from romp_tpu_torch.pipeline.romp_pipeline import (  # noqa: E402
     RompConfig, RompPipeline, precision_flags,
 )
@@ -83,7 +102,7 @@ from romp_tpu_torch.smpl.body_model import (  # noqa: E402
 from romp_tpu_torch.utils.chain_plans import device_events  # noqa: E402
 from romp_tpu_torch.utils.kernel_breakdown import warm_clocks  # noqa: E402
 from romp_tpu_torch.utils.profiling import (  # noqa: E402
-    seeded_params, seeded_trace_params,
+    device_profile, seeded_bev_params, seeded_params, seeded_trace_params,
 )
 
 MIXED = LayerOpts(compute_dtype=torch.bfloat16)
@@ -428,14 +447,29 @@ def trace_clips(n, seed):
             for _ in range(n)]
 
 
-def trace_pipe(dev, ckpt, compute_dtype):
+def trace_pipe(dev, ckpt, compute_dtype, raft_ckpt=""):
     """The trace2 CLI's own pipeline: its flags and defaults (max_person
-    64, center_thresh 0.1, temp_clip_length 8), the seeded weights file,
-    synthetic SMPL-A and SMIL assets, zero flow."""
+    64, center_thresh 0.1, temp_clip_length 8; with a RAFT weights file,
+    20 iterations at 512x512, bf16, sequence form), the seeded weights
+    file, synthetic SMPL-A and SMIL assets; zero flow without raft_ckpt."""
     return build_trace_pipeline(trace_settings([
         "--GPU", str(dev.index or 0), "--model_path", str(ckpt),
-        "--smpl_path", "", "--smil_path", "", "--raft_model_path", "",
+        "--smpl_path", "", "--smil_path", "",
+        "--raft_model_path", str(raft_ckpt),
         "--compute_dtype", compute_dtype]))
+
+
+def record_flows(pipe):
+    """Wrap the pipeline's flow function so that each call's flows are
+    kept (the list returned)."""
+    fn, flows = pipe.flow_fn, []
+
+    def recorded(frames):
+        flows.append(fn(frames))
+        return flows[-1]
+    recorded.takes_sequence = fn.takes_sequence
+    pipe.flow_fn = recorded
+    return flows
 
 
 def phase_trace_slice(dev, ckpt):
@@ -473,6 +507,93 @@ def phase_trace_slice(dev, ckpt):
         for k, n in (("deform_conv", d), ("skinning", sk)):
             launches[k] += n
     phase(4, "slice", path="trace", runs=runs, launches=launches)
+    return launches
+
+
+def phase_trace_raft_slice(dev, ckpt, raft_ckpt):
+    """The trace2 CLI's RAFT branch: `build_trace_pipeline` with a seeded
+    RAFT weights file, the CLI's defaults (512x512 frames, --flow_size 512,
+    20 iterations, bf16 flow, sequence form), mixed path, three 8-frame
+    clips through process_stream. Flows finite and not all zero, (8, 128,
+    128, 2) a clip; one deform launch a clip, two skinning launches per
+    clip with tracks."""
+    clips = trace_clips(3, 31)
+    pipe = trace_pipe(dev, ckpt, "bfloat16", raft_ckpt)
+    check(pipe.flow_fn is not None and pipe.flow_fn.takes_sequence,
+          "trace2 did not build RAFT's sequence flow")
+    flows = record_flows(pipe)
+    deform_conv2d.launches = skinning.launches = conv_pass.launches = 0
+    outs = list(pipe.process_stream(pipe.prefetch(c) for c in clips))
+    torch.cuda.synchronize()
+    launches = {"deform_conv": deform_conv2d.launches,
+                "skinning": skinning.launches,
+                "basic_chain": conv_pass.launches}
+    with_tracks = sum(o is not None for o in outs)
+    check(len(outs) == len(clips) and with_tracks > 0, "RAFT: no tracks")
+    check(launches["deform_conv"] == len(clips),
+          f"RAFT: deform launches {launches}")
+    check(launches["skinning"] == 2 * with_tracks,
+          f"RAFT: skinning launches {launches}")
+    check(launches["basic_chain"] == 0, "RAFT: chain launched")
+    check(len(flows) == len(clips)
+          and all(f.shape == (TRACE_CLIP, 128, 128, 2) for f in flows),
+          f"RAFT flows {[tuple(f.shape) for f in flows]}")
+    for f in flows:
+        check(bool(torch.isfinite(f).all()) and float(f.abs().max()) > 0,
+              "RAFT flow not finite or all zero")
+    for o in outs:
+        for key, val in (o or {}).items():
+            check(np.isfinite(np.asarray(val, np.float32)).all(),
+                  f"TRACE+RAFT {key} not finite")
+    phase(4, "slice", path="trace+raft", launches=launches,
+          clips_with_tracks=with_tracks,
+          flow_max_abs=[float(f.abs().max()) for f in flows],
+          flow_mean_abs=[float(f.abs().mean()) for f in flows])
+    return launches
+
+
+def phase_bev_slice(dev, params, adult, baby, images16):
+    """(a) the user's entry point, BEV(settings)(bgr), with the CLI
+    defaults (mixed path, float16 transfer, 64 slots), reading the seeded
+    weights as a checkpoint file, synthetic SMPL-A / SMIL, every slot a
+    detection; (b) BevPipeline at batch 1 and 16, mixed path, unfused and
+    with fuse_chains. Two skinning launches a call (adult, infant); the
+    chain only when fused."""
+    ckpt = _build.BUILD_DIR / "smoke_bev_weights.pth"
+    torch.save(params, ckpt)
+    skinning.launches = conv_pass.launches = deform_conv2d.launches = 0
+    bev = BEV(bev_settings(["--GPU", str(dev.index or 0), "--model_path",
+                            str(ckpt), "--smpl_path", "", "--smil_path", "",
+                            "--center_thresh=-1e9"]))
+    rng = np.random.RandomState(3)
+    for h, w in ((480, 640), (512, 512)):
+        res = bev((rng.rand(h, w, 3) * 255).astype(np.uint8))
+        check(res is not None and res["verts"].shape[1:] == (V, 3),
+              "BEV: no result")
+        for key, val in res.items():
+            check(np.isfinite(np.asarray(val, np.float32)).all(),
+                  f"BEV {key}")
+    check(skinning.launches == 4 and conv_pass.launches == 0,
+          f"BEV entry point launches: {skinning.launches}, "
+          f"{conv_pass.launches}")
+    runs = {}
+    for fuse in (False, True):
+        cfg = BevConfig(compute_dtype="bfloat16", fuse_chains=fuse)
+        pipe = BevPipeline(params, adult, baby, cfg, dev)
+        for batch in (1, 16):
+            s0, c0 = skinning.launches, conv_pass.launches
+            check_outputs(pipe(images16[:batch]), batch, cfg.max_person)
+            torch.cuda.synchronize()
+            ds, dc = skinning.launches - s0, conv_pass.launches - c0
+            check(ds == 2, f"BEV fuse={fuse} B={batch}: skinning {ds}")
+            check((dc > 0) == fuse, f"BEV fuse={fuse}: chain launches {dc}")
+            runs[f"bfloat16{'+fuse' if fuse else ''},B={batch}"] = dict(
+                skinning=ds, basic_chain=dc)
+    launches = {"skinning": skinning.launches,
+                "basic_chain": conv_pass.launches,
+                "deform_conv": deform_conv2d.launches}
+    check(launches["deform_conv"] == 0, "BEV path launched the deform")
+    phase(4, "slice", path="bev", pipeline_runs=runs, launches=launches)
     return launches
 
 
@@ -657,6 +778,108 @@ def phase_trace_card_vs_cpu(dev, params):
           mixed_conv_errs=conv_errs)
 
 
+def smooth_frames(n, size, seed, shift=5):
+    """n RGB frames (size x size, [0, 255] f32) of 8x8 blocks plus noise,
+    each shifted right by `shift` pixels from the one before."""
+    rng = np.random.RandomState(seed)
+    base = np.kron(rng.rand(1, size // 8, size // 8, 3),
+                   np.ones((1, 8, 8, 1))) * 235.0
+    frames = np.concatenate([np.roll(base, shift * t, axis=2)
+                             for t in range(n)])
+    return torch.from_numpy((frames + rng.rand(n, size, size, 3) * 20.0
+                             ).astype(np.float32))
+
+
+def phase_raft_card_vs_cpu(dev):
+    """RAFT in f32 on one 256x256 pair at 12 iterations, seeded weights,
+    on the CPU and on the card with TF32 off (convs and the correlation
+    matmul): the encoders' features, flow_low and flow_up, each within
+    1e-4 of max|ref|."""
+    params = init_raft_params(torch.Generator().manual_seed(0))
+    cpu = Raft()
+    cpu.load_state_dict(params)
+    cpu.eval()
+    gpu = Raft()
+    gpu.load_state_dict(params)
+    gpu = gpu.to(dev).eval()
+    frames = smooth_frames(2, 256, 60)
+    with torch.inference_mode():
+        x = 2.0 * frames.permute(0, 3, 1, 2) / 255.0 - 1.0
+        feats_c = [cpu.fnet(x), cpu.cnet(x[:1])]
+        flows_c = raft_forward(cpu, frames[:1], frames[1:], 12)
+        with precision_flags(RompConfig(compute_dtype="float32")):
+            xg = x.to(dev)
+            feats_g = [gpu.fnet(xg), gpu.cnet(xg[:1])]
+            flows_g = raft_forward(gpu, frames[:1].to(dev),
+                                   frames[1:].to(dev), 12)
+    errs = {name: rel_err(g.cpu(), c) for name, g, c in zip(
+        ("fnet", "cnet", "flow_low", "flow_up"), feats_g + list(flows_g),
+        feats_c + list(flows_c))}
+    check(max(errs.values()) <= 1e-4, f"RAFT card vs cpu {errs}")
+    phase(5, "card vs cpu", path="raft", rel_errs=errs,
+          flow_up_max_abs=float(flows_c[1].abs().max()))
+
+
+def phase_bev_card_vs_cpu(dev, params):
+    """BEV at 512x512, batch 1, f32 with TF32 off, the CPU (plain
+    versions) against the card (kernels). The head from the same features
+    (the CPU's backbone's): its 4 maps within 1e-4 of max|ref|, the same 3D
+    detections, and the regressed parameters at them within 1e-4. The
+    whole chain, backbone included, within 1e-3: the backbone's own
+    card-vs-CPU difference (f32 summation order, about 1e-4 of max|ref| on
+    the ROMP path) enters a random head that amplifies it. Mixed path:
+    every conv against the CPU's."""
+    image = torch.from_numpy((np.random.RandomState(70).rand(
+        1, 512, 512, 3) * 255).astype(np.uint8))
+    cpu = BevNet()
+    cpu.load_state_dict(params)
+    cpu.eval()
+    gpu = BevNet()
+    gpu.load_state_dict(params)
+    gpu = gpu.to(dev).eval()
+    with torch.inference_mode():
+        feats_c = cpu.extract_features(image)
+        maps_c = bev_head_maps(cpu, feats_c)
+        with precision_flags(RompConfig(compute_dtype="float32")):
+            feats_g = gpu.extract_features(image.to(dev))
+            maps_same = bev_head_maps(gpu, feats_c.to(dev))
+            maps_full = bev_head_maps(gpu, feats_g)
+    errs = {kind: {f: rel_err(getattr(maps, f).cpu(), getattr(maps_c, f))
+                   for f in maps_c._fields}
+            for kind, maps in (("same_features", maps_same),
+                               ("whole_chain", maps_full))}
+    check(max(errs["same_features"].values()) <= 1e-4,
+          f"BEV head maps card vs cpu {errs['same_features']}")
+    check(max(errs["whole_chain"].values()) <= 1e-3,
+          f"BEV maps card vs cpu {errs['whole_chain']}")
+    # threshold in the widest gap among the top 10 peaks, so that a
+    # summation-order difference cannot move a peak across it
+    vals = torch.sort(nms_heatmap3d(maps_c.center_maps_3d).reshape(-1),
+                      descending=True).values
+    k = int(torch.argmax(vals[1:10] - vals[2:11])) + 1
+    thresh = float(0.5 * (vals[k] + vals[k + 1]))
+    slots, regs = [], []
+    for net, maps in ((cpu, maps_c), (gpu, maps_same)):
+        det = parse_centermap3d(maps.center_maps_3d, 16, thresh)
+        with torch.inference_mode(), precision_flags(
+                RompConfig(compute_dtype="float32")):
+            regs.append(bev_regress_params(net, maps, det).cpu())
+        slots.append({tuple(map(int, zyx)): i for i, (zyx, m) in enumerate(
+            zip(det.zyx[0].tolist(), det.mask[0].tolist())) if m})
+    check(len(slots[0]) > 0 and set(slots[0]) == set(slots[1]),
+          f"BEV detections {set(slots[0])} vs {set(slots[1])}")
+    ref = torch.stack([regs[0][0, i] for i in slots[0].values()])
+    got = torch.stack([regs[1][0, slots[1][z]] for z in slots[0]])
+    param_err = rel_err(got, ref)
+    check(param_err <= 1e-4, f"BEV params card vs cpu {param_err}")
+    _, conv_errs = mixed_convs_vs_cpu(
+        gpu, cpu, lambda: bev_forward_maps(gpu, image.to(dev), MIXED))
+    phase(5, "card vs cpu", path="bev",
+          feature_rel_err=rel_err(feats_g.cpu(), feats_c),
+          map_rel_errs=errs, detections=len(slots[0]),
+          param_rel_err=param_err, mixed_conv_errs=conv_errs)
+
+
 def phase_time(dev, params, assets, smi):
     rows = []
     for fuse in (False, True):
@@ -684,15 +907,19 @@ def phase_time(dev, params, assets, smi):
     return rows
 
 
-def phase_trace_time(dev, ckpt, smi):
-    """TRACE through process_stream over ten 8-frame clips: seconds per
-    clip at steady state (the median gap between results, past the first
-    two), frames/s; then three clips through process_clip with a device
-    barrier after each stage, for the split by stage."""
+def phase_trace_time(dev, ckpt, raft_ckpt, smi):
+    """TRACE through process_stream over 8-frame clips (ten with RAFT's
+    flow, eight with zero flow): seconds per clip at steady state (the
+    median gap between results, past the first two), frames/s; then three
+    clips through process_clip with a device barrier after each stage, for
+    the split by stage (RAFT's time in `flow`); and RAFT alone on one
+    clip's 9 frames under the profiler: wall and device-busy ms, idle share
+    and kernels a clip."""
     rows = []
-    clips = trace_clips(10, 40)
-    for dtype in ("bfloat16", "float32"):
-        pipe = trace_pipe(dev, ckpt, dtype)
+    for dtype, raft in (("bfloat16", True), ("bfloat16", False),
+                        ("float32", False)):
+        clips = trace_clips(10 if raft else 8, 40)
+        pipe = trace_pipe(dev, ckpt, dtype, raft_ckpt if raft else "")
         t0 = time.perf_counter()
         stamps = []
         for _ in pipe.process_stream(pipe.prefetch(c) for c in clips):
@@ -703,13 +930,49 @@ def phase_trace_time(dev, ckpt, smi):
         pipe.profile = True
         for c in clips[:3]:
             pipe.process_clip(c)
-        rows.append(dict(
-            path="trace", compute_dtype=dtype, clips=len(clips),
+        row = dict(
+            path="trace", compute_dtype=dtype,
+            flow="raft" if raft else "zero", clips=len(clips),
             frames_per_clip=TRACE_CLIP, s_per_clip=sec,
             frames_per_s=TRACE_CLIP / sec, stream_total_s=stamps[-1] - t0,
             stage_ms_per_clip_synced={
                 k: v / 3 * 1e3 for k, v in pipe.stage_times.items()},
-            card=smi))
+            card=smi)
+        if raft:
+            frames = pipe.prefetch(np.concatenate(
+                [clips[0][:1], clips[0]]))
+            prof, _ = device_profile(lambda: pipe.flow_fn(frames), 3, 1)
+            row["raft_profile_per_clip"] = prof
+        rows.append(row)
+    for row in rows:
+        phase(6, "time", **row)
+    return rows
+
+
+def phase_bev_time(dev, params, adult, baby, smi):
+    """BEV through BevPipeline, mixed path, unfused and fused: median
+    seconds a call (host clock, ended by a device barrier) at batch 1
+    (latency) and 16 (img/s)."""
+    rows = []
+    for fuse in (False, True):
+        cfg = BevConfig(compute_dtype="bfloat16", fuse_chains=fuse)
+        pipe = BevPipeline(params, adult, baby, cfg, dev)
+        for batch, reps in ((1, 20), (16, 5)):
+            images = (np.random.RandomState(80 + batch).rand(
+                batch, 512, 512, 3) * 255).astype(np.uint8)
+            for _ in range(2):
+                pipe(images)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                pipe(images)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            sec = statistics.median(times)
+            rows.append(dict(path="bev", compute_dtype="bfloat16",
+                             fuse_chains=fuse, batch=batch, median_s=sec,
+                             img_per_s=batch / sec, reps=reps, card=smi))
     for row in rows:
         phase(6, "time", **row)
     return rows
@@ -752,10 +1015,20 @@ def main():
     trace_ckpt = _build.BUILD_DIR / "smoke_trace_weights.pth"
     torch.save(trace_params, trace_ckpt)
     trace_launches = phase_trace_slice(dev, trace_ckpt)
+    raft_ckpt = _build.BUILD_DIR / "smoke_raft_weights.pth"
+    torch.save(init_raft_params(torch.Generator().manual_seed(0)), raft_ckpt)
+    raft_launches = phase_trace_raft_slice(dev, trace_ckpt, raft_ckpt)
+    bev_params = seeded_bev_params(device=dev)
+    adult = SmplModel(synthetic_assets(seed=0, num_betas=11))
+    baby = SmplModel(synthetic_assets(seed=1, num_betas=10))
+    bev_launches = phase_bev_slice(dev, bev_params, adult, baby, images16)
     phase_card_vs_cpu(dev, params, assets)
     phase_trace_card_vs_cpu(dev, trace_params)
+    phase_raft_card_vs_cpu(dev)
+    phase_bev_card_vs_cpu(dev, bev_params)
     phase_time(dev, params, assets, smi)
-    phase_trace_time(dev, trace_ckpt, smi)
+    phase_trace_time(dev, trace_ckpt, raft_ckpt, smi)
+    phase_bev_time(dev, bev_params, adult, baby, smi)
 
     meta = {
         "skinning": ("romp_tpu_torch/csrc/lbs.cu",
@@ -774,7 +1047,9 @@ def main():
         timed = ([r for r in rows[name] if r["batch"] == 2]
                  if name == "basic_chain" else rows[name][-1:])
         by_path = {"romp": romp_launches[name],
-                   "trace": trace_launches[name]}
+                   "trace": trace_launches[name],
+                   "trace+raft": raft_launches[name],
+                   "bev": bev_launches[name]}
         device = [r["device_ms"] for r in timed]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

@@ -4,8 +4,10 @@
 
 Same flags and defaults as `romp_tpu/cli/trace.py`; `--GPU N` (default 0)
 runs on `cuda:N` and raises when that card does not exist, `--GPU -1` runs
-on the CPU. Optical flow (RAFT) is not ported yet: the port runs TRACE with
-zero flow, the JAX CLI's path when the RAFT weights are absent.
+on the CPU. With the RAFT weights file present (`--raft_model_path`) the
+optical flow comes from RAFT, else it is zero, as in the JAX CLI.
+`--show_items world` also writes the global-view renders, the top-down
+trajectory and an HTML viewer under `<save_path>/world_vis`.
 """
 from __future__ import annotations
 
@@ -34,9 +36,9 @@ def trace_settings(input_args=None):
                         default=osp.join(DEFAULT_HOME, "TRACE.pth"))
     parser.add_argument("--raft_model_path", type=str,
                         default=osp.join(DEFAULT_HOME, "raft-things.pth"),
-                        help="RAFT optical-flow weights; the port has no "
-                             "RAFT yet and runs with zero flow, so an "
-                             "existing file is refused (pass '' to skip)")
+                        help="RAFT optical-flow weights (torch layout); "
+                             "without the file TRACE runs with zero flow "
+                             "(pass '' to skip RAFT)")
     parser.add_argument("--raft_iters", type=int, default=20)
     parser.add_argument("--flow_size", type=int, default=512)
     parser.add_argument("--flow_dtype", type=str, default="bfloat16",

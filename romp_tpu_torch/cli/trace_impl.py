@@ -40,11 +40,35 @@ def save_tracking_matrix(results_per_frame: Dict[int, Dict], path: str):
         f.write("\n".join(lines))
 
 
+def save_world_view(results_per_frame: Dict[int, Dict], faces: np.ndarray,
+                    save_dir: str) -> None:
+    """Global-view renders, the top-down trajectory and the HTML viewer of
+    the tracked people (`--show_items world`)."""
+    from romp_tpu_torch.vis.world_view import visualize_global_trajectory
+
+    flat = {k: [] for k in ("track_ids", "frame_ids", "frame_valid",
+                            "world_cams", "verts")}
+    for fid in sorted(results_per_frame):
+        fr = results_per_frame[fid]
+        n = len(fr["track_ids"])
+        flat["track_ids"] += list(fr["track_ids"])
+        flat["frame_ids"] += [fid] * n
+        flat["frame_valid"] += [True] * n
+        flat["world_cams"] += list(fr["world_cams"])
+        flat["verts"] += list(fr["verts"])
+    if flat["track_ids"]:
+        visualize_global_trajectory(
+            {k: np.asarray(v) for k, v in flat.items()}, np.asarray(faces),
+            save_dir)
+
+
 def build_trace_pipeline(settings):
     """The CLI's TracePipeline on `--GPU`'s device. Missing weights fall
     back to seeded random init, missing SMPL-A / SMIL files to synthetic
-    assets, each with a warning; an existing RAFT weights file is refused
-    (no RAFT yet)."""
+    assets, each with a warning. With the RAFT weights file present the
+    flow comes from RAFT (`--raft_iters`, `--flow_dtype`, `--flow_size`,
+    `--corr_dtype`; fnet shared over each clip's frames), else it is zero,
+    with a warning (`romp_tpu/cli/trace_impl.py:77-98`)."""
     from romp_tpu_torch.cli.common import (
         device_from_flag, load_checkpoint_flexible, load_smpl_assets_flexible,
     )
@@ -55,17 +79,6 @@ def build_trace_pipeline(settings):
     from romp_tpu_torch.pipeline.trace_tracking import SeqConfig
     from romp_tpu_torch.smpl.body_model import SmplModel
 
-    if "world" in settings.show_items.split(","):
-        raise NotImplementedError(
-            "--show_items world: the global-trajectory view "
-            "(vis/world_view.py) is not ported yet")
-    raft_path = settings.raft_model_path
-    if raft_path and osp.exists(raft_path):
-        raise NotImplementedError(
-            f"RAFT weights {raft_path!r} found, but the port has no RAFT "
-            "yet; pass --raft_model_path '' to run with zero optical flow")
-    print("RAFT weights not found; running TRACE with zero optical flow",
-          file=sys.stderr)
     device = device_from_flag(settings.GPU)
     params = load_checkpoint_flexible(
         settings.model_path,
@@ -78,8 +91,24 @@ def build_trace_pipeline(settings):
                       compute_dtype=settings.compute_dtype)
     seq_cfg = SeqConfig(subject_num=settings.subject_num,
                         smooth_pose_shape=True)
+    flow_fn = None
+    raft_path = settings.raft_model_path
+    if raft_path and osp.exists(raft_path):
+        from romp_tpu_torch.models.raft import (
+            filter_raft_state_dict, make_trace_flow_fn,
+        )
+        from romp_tpu_torch.utils.checkpoint import load_torch_checkpoint
+
+        flow_fn = make_trace_flow_fn(
+            filter_raft_state_dict(load_torch_checkpoint(raft_path)),
+            iters=settings.raft_iters, compute_dtype=settings.flow_dtype,
+            flow_input_size=settings.flow_size,
+            corr_dtype=settings.corr_dtype, sequence=True, device=device)
+    else:
+        print("RAFT weights not found; running TRACE with zero optical flow",
+              file=sys.stderr)
     return TracePipeline(params, SmplModel(adult), SmplModel(baby), cfg,
-                         seq_cfg, device=device)
+                         seq_cfg, flow_fn=flow_fn, device=device)
 
 
 def run_trace(settings) -> int:
@@ -133,6 +162,10 @@ def run_trace(settings) -> int:
     save_tracking_matrix(results_per_frame,
                          osp.join(settings.save_path,
                                   f"TRACE_{seq_name}.txt"))
+    if "world" in settings.show_items:
+        save_world_view(results_per_frame,
+                        pipe.smpl_adult.faces.cpu().numpy(),
+                        osp.join(settings.save_path, "world_vis"))
     print(f"saved {len(results_per_frame)} frames of results to "
           f"{settings.save_path}")
     return 0

@@ -20,10 +20,12 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from romp_tpu_torch.models.bev import (
+    BvOut, BvPre, Head, _bv_branch, cam3dmap_anchor,
+)
 from romp_tpu_torch.models.hrnet import hrnet32
 from romp_tpu_torch.models.layers import (
-    F32, BasicBlock, BasicBlock1d, BasicBlock3d, BasicBlockConvDs, Conv2d,
-    LayerOpts, batch_norm,
+    F32, BasicBlock, BasicBlock3d, BasicBlockConvDs, Conv2d, LayerOpts,
 )
 from romp_tpu_torch.ops.deform_conv import deform_conv2d
 
@@ -37,20 +39,6 @@ TRACE_FOV = 50.0
 # channels per map row that the BV branch collapses: center 1 + cam offset 3
 # + local residual 3 + the pre-stack's 16
 BV_ROW_CH = 7 + OUTMAP // 8
-
-
-def cam3dmap_anchor(fov_deg: float = 60.0, size: int = OUTMAP) -> np.ndarray:
-    """Depth-anchor scale per depth level (the port's copy of
-    `romp_tpu/models/bev.py:43`): piecewise-linear weak-perspective scale
-    over four depth bands (1/10/20/100 m), seeded at 8."""
-    depth_level = np.array([1.0, 10.0, 20.0, 100.0], np.float32)
-    bins = (np.array([2, 25, 3, 2], np.float32) / 64.0 * size).astype(np.int32)
-    scales = 1.0 / np.tan(np.radians(fov_deg / 2.0)) / depth_level
-    out, prev = [], 8.0
-    for scale, n in zip(scales, bins):
-        out.append(prev - np.arange(1, n + 1) / n * (prev - scale))
-        prev = scale
-    return np.concatenate(out).astype(np.float32)
 
 
 def trace_cam_anchor() -> np.ndarray:
@@ -137,57 +125,6 @@ class TemporalEncoder(nn.Module):
         return torch.cat([layer(y) for layer in self.out_layers], dim=-1)
 
 
-class Head(nn.ModuleList):
-    """`_head` (`trace.py:128-135`): `blocks` BasicBlockConvDs of 128
-    channels, then a 1x1 conv with bias when out_ch is given."""
-
-    def __init__(self, in_ch: int, out_ch: Optional[int], blocks: int):
-        mods: List[nn.Module] = [
-            nn.ModuleList([BasicBlockConvDs(in_ch if b == 0 else HC, HC)])
-            for b in range(blocks)]
-        if out_ch is not None:
-            mods.append(Conv2d(HC, out_ch, 1, 1, padding=0, bias=True))
-        super().__init__(mods)
-
-    def forward(self, x: torch.Tensor, opts: LayerOpts = F32,
-                stop: Optional[int] = None, start: int = 0) -> torch.Tensor:
-        """Run modules [start, stop) (all by default)."""
-        for m in list(self)[start:stop]:
-            x = m[0](x, opts) if isinstance(m, nn.ModuleList) else m(x, opts)
-        return x
-
-
-class BvPre(nn.ModuleList):
-    """The BV branch's 1x1 / 3x3 / 1x1 conv-BN-ReLU stack (`trace.py:143-
-    150`), indices as the reference nn.Sequential (ReLUs at 2, 5, 8)."""
-
-    def __init__(self, in_ch: int, ch: int = OUTMAP // 8):
-        super().__init__([
-            Conv2d(in_ch, ch, 1, 1, padding=0, bias=True), batch_norm(ch),
-            nn.ReLU(),
-            Conv2d(ch, ch, 3, 1, bias=True), batch_norm(ch), nn.ReLU(),
-            Conv2d(ch, ch, 1, 1, padding=0, bias=True), batch_norm(ch),
-            nn.ReLU()])
-
-    def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
-        for i in (0, 3, 6):
-            x = torch.relu(self[i + 1](self[i](x, opts)))
-        return x
-
-
-class BvOut(nn.ModuleList):
-    """Three BasicBlock1d over the (C*H)-channel 1D map along x."""
-
-    def __init__(self, in_ch: int, out_ch: int):
-        super().__init__([BasicBlock1d(in_ch, 512), BasicBlock1d(512, 512),
-                          BasicBlock1d(512, out_ch)])
-
-    def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
-        for block in self:
-            x = block(x, opts)
-        return x
-
-
 class DeformWarp(nn.Module):
     """Holds `deform_warper.weight` (Cout, C, 3, 3); 8 deform groups."""
 
@@ -258,16 +195,6 @@ class TraceNet(nn.Module):
         S/4) f32 backbone features (`trace_pipeline.py:98-105`)."""
         x = ((images.float() / 255.0) * 2.0 - 1.0).permute(0, 3, 1, 2)
         return self.backbone(x.contiguous(), opts).float()
-
-
-def _bv_branch(pre: BvPre, out: BvOut, feat: torch.Tensor,
-               fv_maps: List[torch.Tensor], opts: LayerOpts) -> torch.Tensor:
-    """FV maps + the pre-stack's features, (C, H) collapsed into 1D-conv
-    channels (index c*H + h) over x: (B, out_channels, W)
-    (`trace.py:138-158`)."""
-    B, _, H, W = feat.shape
-    summon = torch.cat(fv_maps + [pre(feat, opts)], dim=1)
-    return out(summon.reshape(B, -1, W), opts)
 
 
 def extract_temporal_features(net: TraceNet, feats: torch.Tensor,

@@ -1,15 +1,18 @@
-"""Device-time profile of the port's ROMP image path and TRACE video path
-on one GPU (counterpart of `romp_tpu/utils/profiling.py`).
+"""Device-time profile of the port's ROMP and BEV image paths and TRACE
+video path on one GPU (counterpart of `romp_tpu/utils/profiling.py`).
 
-    python -m romp_tpu_torch.utils.profiling [--path romp|trace|both]
+    python -m romp_tpu_torch.utils.profiling [--path romp|bev|trace|all]
         [--out profile.txt]
 
 Full width (HRNet-W32, 512x512, V = 6890) with seeded random weights
 (BatchNorm calibrated, `calibrate_batchnorm`) and synthetic SMPL assets.
 ROMP: the mixed path (the CLI default) with `fuse_chains` off and on, at
-batch 1 and 64, through `RompPipeline`. TRACE: `TracePipeline` with the
-CLI's defaults (64 slots, center_thresh 0.1, zero flow), one call being a
-stream of four 8-frame clips through `process_stream`, mixed path and f32.
+batch 1 and 64, through `RompPipeline`. BEV: `BevPipeline`, mixed path,
+`fuse_chains` off and on, batch 1 and 16 (`seeded_bev_params`). TRACE:
+`TracePipeline` with the CLI's defaults (64 slots, center_thresh 0.1), one
+call being a stream of four 8-frame clips through `process_stream`: with
+zero flow, mixed path and f32, and with RAFT's flow (seeded RAFT weights,
+the CLI's defaults: 512x512, 20 iterations, bf16, sequence form), mixed.
 Each runs under `torch.profiler` (CPU + CUDA activities) after warm-up
 calls and prints, per configuration:
 - wall ms per call: host clock around the profiled calls, ended by
@@ -32,12 +35,17 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
+from romp_tpu_torch.models.bev import (
+    BevNet, calibrate_bev_batchnorm, init_bev_params,
+)
+from romp_tpu_torch.models.raft import init_raft_params, make_trace_flow_fn
 from romp_tpu_torch.models.romp import (
     RompNet, calibrate_batchnorm, init_romp_params,
 )
 from romp_tpu_torch.models.trace import (
     TraceNet, calibrate_trace_batchnorm, init_trace_params,
 )
+from romp_tpu_torch.pipeline.bev_pipeline import BevConfig, BevPipeline
 from romp_tpu_torch.pipeline.romp_pipeline import RompConfig, RompPipeline
 from romp_tpu_torch.pipeline.trace_pipeline import TraceConfig, TracePipeline
 from romp_tpu_torch.smpl.body_model import SmplModel, synthetic_assets
@@ -107,7 +115,31 @@ def seeded_trace_params(seed: int = 0, clip_length: int = 8,
     return {k: v.cpu() for k, v in net.state_dict().items()}
 
 
-def profile_config(pipe: RompPipeline, batch: int, calls: int,
+def seeded_bev_params(seed: int = 0, device="cuda"
+                      ) -> Dict[str, torch.Tensor]:
+    """Full-width BEV weights (HRNet-W32, 512x512, 128x128x64 maps): a
+    seeded init (`init_bev_params`) whose BatchNorm statistics, backbone's
+    included, are calibrated on one seeded random batch of two 512x512
+    images (`calibrate_bev_batchnorm`), on `device`. Returned on the CPU."""
+    net = BevNet()
+    net.load_state_dict(init_bev_params(torch.Generator().manual_seed(seed)))
+    net = net.to(device)
+    images = torch.from_numpy((np.random.RandomState(seed + 13).rand(
+        2, 512, 512, 3) * 255).astype(np.uint8)).to(device)
+    calibrate_bev_batchnorm(net, images)
+    return {k: v.cpu() for k, v in net.state_dict().items()}
+
+
+def seeded_raft_flow_fn(seed: int = 0, device="cuda"):
+    """The trace2 CLI's flow function on seeded RAFT weights
+    (`init_raft_params`): 20 iterations at 512x512, bf16, sequence form."""
+    return make_trace_flow_fn(
+        init_raft_params(torch.Generator().manual_seed(seed)), iters=20,
+        compute_dtype="bfloat16", flow_input_size=512, sequence=True,
+        device=device)
+
+
+def profile_config(pipe, batch: int, calls: int,
                    warmup: int = 3) -> Tuple[dict, str]:
     images = (np.random.RandomState(batch).rand(batch, 512, 512, 3)
               * 255).astype(np.uint8)
@@ -169,8 +201,8 @@ def device_profile(fn, calls: int, warmup: int) -> Tuple[dict, str]:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("romp", "trace", "both"),
-                    default="both")
+    ap.add_argument("--path", choices=("romp", "bev", "trace", "all"),
+                    default="all")
     ap.add_argument("--out", default=None,
                     help="write the profiler's op tables to this file")
     args = ap.parse_args(argv)
@@ -178,7 +210,7 @@ def main(argv=None) -> None:
         raise SystemExit("profiling: no CUDA device; this profiles the GPU")
     dev = torch.device("cuda", 0)
     tables = []
-    if args.path in ("romp", "both"):
+    if args.path in ("romp", "all"):
         params, assets = seeded_params(), synthetic_assets(seed=0)
         for fuse in (False, True):
             cfg = RompConfig(compute_dtype="bfloat16", fuse_chains=fuse)
@@ -187,17 +219,32 @@ def main(argv=None) -> None:
                 row, table = profile_config(pipe, batch, calls)
                 print(json.dumps(row), flush=True)
                 tables.append(f"== fuse_chains={fuse} batch={batch}\n{table}")
-    if args.path in ("trace", "both"):
+    adult = SmplModel(synthetic_assets(seed=0, num_betas=11))
+    baby = SmplModel(synthetic_assets(seed=1, num_betas=10))
+    if args.path in ("bev", "all"):
+        params = seeded_bev_params(device=dev)
+        for fuse in (False, True):
+            cfg = BevConfig(compute_dtype="bfloat16", fuse_chains=fuse)
+            pipe = BevPipeline(params, adult, baby, cfg, dev)
+            for batch, calls in ((1, 10), (16, 3)):
+                row, table = profile_config(pipe, batch, calls)
+                print(json.dumps(dict(path="bev", **row)), flush=True)
+                tables.append(f"== bev fuse_chains={fuse} batch={batch}\n"
+                              f"{table}")
+    if args.path in ("trace", "all"):
         params = seeded_trace_params(device=dev)
-        adult = SmplModel(synthetic_assets(seed=0, num_betas=11))
-        baby = SmplModel(synthetic_assets(seed=1, num_betas=10))
-        for dtype in ("bfloat16", "float32"):
+        for dtype, raft in (("bfloat16", False), ("float32", False),
+                            ("bfloat16", True)):
             cfg = TraceConfig(max_person=64, conf_thresh=0.1,
                               compute_dtype=dtype)
-            pipe = TracePipeline(params, adult, baby, cfg, device=dev)
+            pipe = TracePipeline(
+                params, adult, baby, cfg, device=dev,
+                flow_fn=seeded_raft_flow_fn(device=dev) if raft else None)
             row, table = profile_trace(pipe)
-            print(json.dumps(dict(path="trace", **row)), flush=True)
-            tables.append(f"== trace compute_dtype={dtype}\n{table}")
+            print(json.dumps(dict(path="trace", raft=raft, **row)),
+                  flush=True)
+            tables.append(f"== trace compute_dtype={dtype} raft={raft}\n"
+                          f"{table}")
     if args.out:
         with open(args.out, "w") as f:
             f.write("\n\n".join(tables))
