@@ -17,7 +17,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     slots); the chain at batch 1, 2 and 64 for each branch shape, beside
     the unfused mixed branch it replaces (`unfused_ms`); and a check that
     the SASS of every chain, skinning and deform kernel holds tensor-core
-    instructions (HMMA / HGMMA, by cuobjdump);
+    instructions (HMMA / HGMMA, by cuobjdump); the bf16 variants: the chain
+    with bf16 in and out at batch 64 for the four branch shapes (beside the
+    unfused bf16-activation branch) and the deform on bf16 features and
+    weights at TRACE's shape, each against its plain twin;
  4. slices, full width with seeded random weights and synthetic SMPL
     assets. ROMP: HRNet-W32 at 512x512 through the `ROMP` entry point on 4
     images and through `RompPipeline` at batch 16 in four configurations.
@@ -27,30 +30,46 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     RAFT branch: 512x512, 20 iterations, bf16, sequence form). BEV:
     HRNet-W32 at 512x512 with 128x128x64 3D maps, through the `BEV` entry
     point on 2 images and through `BevPipeline` at batch 1 and 16, mixed
-    path, unfused and with `fuse_chains`. Each path's kernel launch
-    counters are zeroed just before it and read just after;
+    path, unfused and with `fuse_chains`. Then the bf16-activation mode
+    (act_dtype bfloat16): ROMP and BEV at batch 16, unfused and fused, and
+    TRACE on three clips. Each path's kernel launch counters are zeroed
+    just before it and read just after;
  5. card vs CPU: the same weights and inputs through the port on the CPU
     (plain versions) and on the card (kernels), f32 with TF32 off (ROMP,
     TRACE's head, RAFT on one 256x256 pair at 12 iterations, BEV's maps and
     its parameters at the detected slots at batch 1); then the mixed path,
     every conv of the net against the CPU's (ROMP at batches 1, 16 and 64
     and the whole net's maps; TRACE on one 2-frame clip; BEV at batch 1);
+    then the bf16-activation path, every conv against the CPU's bf16 conv
+    (one bf16 step at no more than 1% of the elements), every fused chain
+    against its plain twin and TRACE's deform against its plain twin, on
+    the same inputs (ROMP and BEV at batch 1, TRACE on one 2-frame clip);
+ serve: `romp_tpu_torch.serve`'s server (built as `main` builds it) on a
+    free port: ROMP at full width, max_batch 8, --precompile, bf16
+    activations; `run_batch` once under torch.cuda.set_sync_debug_mode
+    ("error"); batch-1 round trips (p50, p99 of 50 sequential requests), a
+    burst of 64 requests from 8 client threads (wall time, images/s, the
+    realized average batch); then BEV likewise, with one panorama through
+    the crowd route;
  6. time: ROMP img/s; TRACE s per 8-frame clip and frames/s at steady state
     through `process_stream`, zero flow and with RAFT, with a per-stage
     split (RAFT's in the synced `flow` stage) and RAFT alone under the
     profiler (device-busy ms and kernels a clip); BEV img/s at batch 16 and
-    batch-1 latency, unfused and fused.
+    batch-1 latency, unfused and fused; ROMP img/s at batch 64 with bf16
+    activations, unfused and fused.
 Then the kernels' JSON line, the card's name and power limit, and the
 result line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -67,14 +86,15 @@ from romp_tpu_torch.models.bev import (  # noqa: E402
     BevNet, bev_forward_maps, bev_head_maps, bev_regress_params,
 )
 from romp_tpu_torch.models.hrnet import Branch  # noqa: E402
+from romp_tpu_torch.models.romp import RompNet  # noqa: E402
 from romp_tpu_torch.models.layers import (  # noqa: E402
-    Conv1d, Conv2d, Conv3d, LayerOpts, he_normal_,
+    Conv1d, Conv2d, Conv3d, LayerOpts, cast_bf16, he_normal_,
 )
 from romp_tpu_torch.models.raft import (  # noqa: E402
     Raft, init_raft_params, raft_forward,
 )
 from romp_tpu_torch.models.trace import (  # noqa: E402
-    TraceNet, trace_forward_maps,
+    DeformWarp, TraceNet, trace_forward_maps,
 )
 from romp_tpu_torch.ops import _build  # noqa: E402
 from romp_tpu_torch.ops.centermap import (  # noqa: E402
@@ -95,7 +115,12 @@ from romp_tpu_torch.pipeline.bev_pipeline import (  # noqa: E402
 from romp_tpu_torch.pipeline.romp_pipeline import (  # noqa: E402
     RompConfig, RompPipeline, precision_flags,
 )
-from romp_tpu_torch.pipeline.trace_pipeline import TraceConfig  # noqa: E402
+from romp_tpu_torch.pipeline.trace_pipeline import (  # noqa: E402
+    TraceConfig, TracePipeline,
+)
+from romp_tpu_torch.serve import (  # noqa: E402
+    InferenceClient, build_server, serve_args,
+)
 from romp_tpu_torch.smpl.body_model import (  # noqa: E402
     SmplModel, synthetic_assets,
 )
@@ -106,6 +131,11 @@ from romp_tpu_torch.utils.profiling import (  # noqa: E402
 )
 
 MIXED = LayerOpts(compute_dtype=torch.bfloat16)
+BF16_ACT = LayerOpts(compute_dtype=torch.bfloat16, act_dtype=torch.bfloat16)
+BF16_ACT_FUSED = dataclasses.replace(BF16_ACT, fuse_chains=True)
+# every kernel variant, as the kernels line names them
+KERNELS = ("skinning", "basic_chain", "basic_chain_bf16", "deform_conv",
+           "deform_conv_bf16")
 BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))  # (C, H) at 512x512
 CHAIN_BATCHES = (1, 2, 64)   # batch-1 latency, PR 1's rows, offline batch
 SKIN_N = (64, 1024, 4096)   # batch x max_person: 1, 16 and 64 x 64
@@ -199,6 +229,23 @@ def device_ms(fn, launches, calls=20, tries=3):
     return None
 
 
+def reset_counts():
+    """Every kernel wrapper's launch counter to 0."""
+    skinning.launches = conv_pass.launches = deform_conv2d.launches = 0
+    basic_chain.bf16_launches = deform_conv2d.bf16_launches = 0
+
+
+def launch_counts():
+    """Launches per kernel variant since reset_counts (the f32 variants'
+    counters include their bf16 variants' launches: those are taken out)."""
+    return {"skinning": skinning.launches,
+            "basic_chain": conv_pass.launches - basic_chain.bf16_launches,
+            "basic_chain_bf16": basic_chain.bf16_launches,
+            "deform_conv": (deform_conv2d.launches
+                            - deform_conv2d.bf16_launches),
+            "deform_conv_bf16": deform_conv2d.bf16_launches}
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -236,6 +283,9 @@ def phase_kernels(dev):
     rows["basic_chain"] = [chain_row(dev, g, B, C, H)
                            for B in CHAIN_BATCHES for C, H in BRANCHES]
     rows["deform_conv"].append(deform_row(dev, g))
+    rows["basic_chain_bf16"] = [chain_bf16_row(dev, g, 64, C, H)
+                                for C, H in BRANCHES]
+    rows["deform_conv_bf16"] = [deform_bf16_row(dev, g)]
     for name, shapes in rows.items():
         for row in shapes:
             phase(3, f"kernel {name}", **row)
@@ -314,7 +364,7 @@ def chain_row(dev, g, B, C, H, blocks=4):
 
 
 TENSOR_CORE_KERNELS = ("conv3x3_bn_act_mma_kernel", "skinning_tf32_kernel",
-                       "deform_conv_tf32_kernel")
+                       "deform_conv_tf32_kernel", "deform_conv_bf16_kernel")
 
 
 def tensor_core_sass():
@@ -347,6 +397,90 @@ def demangled(name):
                 return (f"{ident}<"
                         f"{','.join(re.findall(r'Li(\d+)E', args[1]))}>")
     return name
+
+
+def chain_bf16_row(dev, g, B, C, H, blocks=4):
+    """The chain's bf16-in / bf16-out variant on a seeded branch's packed
+    operands: bit-equal to the f32 kernel on the widened input, rounded
+    (the same plan and passes), and within the chain's 5e-3 of max|ref|
+    plus one bf16 step (2^-8) of its plain twin; beside the unfused
+    bf16-activation branch (cuDNN bf16 convs, BN, ReLU, adds in bf16)."""
+    br = seeded_branch(g, C, blocks).to(dev)
+    cast_bf16(br)
+    w, sc, sh = br.packed_w, br.packed_scale, br.packed_shift
+    x = torch.randn(B, C, H, H, generator=g).to(torch.bfloat16).to(dev)
+    out = basic_chain(x, w, sc, sh, blocks)
+    ref = basic_chain_plain(x, w, sc, sh, blocks)
+    f32 = basic_chain(x.float(), w, sc, sh, blocks).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    shape = f"B={B},C={C},H=W={H},blocks={blocks},bf16"
+    check(out.dtype == torch.bfloat16 and torch.equal(out, f32),
+          f"chain {shape}: != the f32 chain, rounded")
+    err = rel_err(out, ref)
+    check(err <= 5e-3 + 2.0 ** -8, f"chain {shape}: rel err {err}")
+    # 8 bf16 3x3 convs; x (bf16) read once, the output (bf16) written once,
+    # the packed weights and BN scale / shift read once
+    bounds = bound(
+        2 * 2 * x.numel() + 2 * w.numel() + 4 * (sc.numel() + sh.numel()),
+        (blocks * 2 * 2 * x.numel() * 9 * C, BF16_FLOP_PER_S))
+    with torch.inference_mode(), precision_flags(
+            RompConfig(compute_dtype="bfloat16", act_dtype="bfloat16")):
+        unfused_ms = time_ms(lambda: br(x, BF16_ACT))
+    plan = launch_plan(B, C, H, H)
+    kernels = {"conv3x3_bn_act_mma_kernel": 2 * blocks,
+               "nchw_to_nhwc_bf16_kernel": 1}
+    if plan.ksplit > 1:
+        kernels["ksplit_reduce_kernel"] = 2 * blocks
+    return dict(
+        shape=shape, batch=B, plan=plan._asdict(),
+        max_abs_err=float((out.float() - ref.float()).abs().max()),
+        rel_err=err, **bounds,
+        ms=time_ms(lambda: basic_chain(x, w, sc, sh, blocks)),
+        device_ms=device_ms(lambda: basic_chain(x, w, sc, sh, blocks),
+                            kernels),
+        plain_ms=time_ms(lambda: basic_chain_plain(x, w, sc, sh, blocks),
+                         reps=10),
+        unfused_ms=unfused_ms)
+
+
+def deform_bf16_row(dev, g):
+    """The deform's bf16 variant (bf16 x and weight, f32 offsets, f32 out)
+    at TRACE's shape against its plain twin (the same rounding points, so
+    f32 summation order: 1e-4 of max|ref|), and with zero offsets against
+    F.conv2d of the same bf16 values in f32 (TF32 off)."""
+    B, C, H, W, G, Cout = (DEFORM[k] for k in ("B", "C", "H", "W", "G",
+                                               "Cout"))
+    x = torch.randn(B, C, H, W, generator=g).to(torch.bfloat16).to(dev)
+    off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
+    w = (torch.randn(Cout, C, 3, 3, generator=g) * 0.1).to(
+        torch.bfloat16).to(dev)
+    out = deform_conv2d(x, off, w, G)
+    ref = deform_conv2d_plain(x, off, w, G)
+    torch.cuda.synchronize()
+    err = rel_err(out, ref)
+    check(out.dtype == torch.float32 and err <= 1e-4,
+          f"deform bf16: rel err {err}")
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        conv = F.conv2d(x.float(), w.float(), padding=1)
+    zero_err = rel_err(deform_conv2d(x, torch.zeros_like(off), w, G), conv)
+    check(zero_err <= 1e-4, f"deform bf16 zero offsets vs conv2d: {zero_err}")
+    # x (bf16) and offsets read once, the f32 output written once; per
+    # output pixel, group and tap the bf16 products of the contraction, and
+    # the three bilinear blends of Cg channels (3 FLOP each) in f32
+    bounds = bound(
+        2 * x.numel() + 4 * off.numel() + 2 * w.numel() + 4 * out.numel(),
+        (B * H * W * 9 * C * 2 * Cout, BF16_FLOP_PER_S),
+        (B * H * W * 9 * C * 9, F32_FLOP_PER_S))
+    return dict(
+        shape=f"B={B},C={C},H=W={H},G={G},Cout={Cout},bf16",
+        max_abs_err=float((out - ref).abs().max()), rel_err=err,
+        zero_offset_rel_err=zero_err,
+        ms=time_ms(lambda: deform_conv2d(x, off, w, G)),
+        device_ms=device_ms(lambda: deform_conv2d(x, off, w, G),
+                            {"deform_prep_bf16_kernel": 1,
+                             "deform_conv_bf16_kernel": 1}),
+        plain_ms=time_ms(lambda: deform_conv2d_plain(x, off, w, G), reps=10),
+        **bounds)
 
 
 def deform_row(dev, g):
@@ -401,9 +535,7 @@ def phase_slice(dev, params, assets, images16):
     ckpt = _build.BUILD_DIR / "smoke_weights.pth"
     ckpt.parent.mkdir(parents=True, exist_ok=True)
     torch.save(params, ckpt)
-    skinning.launches = 0
-    conv_pass.launches = 0
-    deform_conv2d.launches = 0
+    reset_counts()
     romp = ROMP(romp_settings(["--GPU", str(dev.index or 0),
                                "--model_path", str(ckpt), "--smpl_path", "",
                                "--center_thresh=-1e9"]))
@@ -432,9 +564,7 @@ def phase_slice(dev, params, assets, images16):
             check((dc > 0) == fuse, f"{dtype} fuse={fuse}: chain launches {dc}")
             runs[f"{dtype}{'+fuse' if fuse else ''}"] = dict(
                 skinning=ds, basic_chain=dc)
-    launches = {"skinning": skinning.launches,
-                "basic_chain": conv_pass.launches,
-                "deform_conv": deform_conv2d.launches}
+    launches = launch_counts()
     check(launches["deform_conv"] == 0, "ROMP path launched the deform")
     phase(4, "slice", path="romp", romp_4_images_s=romp_s,
           pipeline_runs=runs, launches=launches)
@@ -477,10 +607,10 @@ def phase_trace_slice(dev, ckpt):
     path (the CLI default) and on f32. One deform launch per clip, two
     skinning launches (adult, infant) per clip with tracks."""
     clips = trace_clips(3, 30)
-    runs, launches = {}, {"deform_conv": 0, "skinning": 0, "basic_chain": 0}
+    runs, launches = {}, dict.fromkeys(KERNELS, 0)
     for dtype in ("bfloat16", "float32"):
         pipe = trace_pipe(dev, ckpt, dtype)
-        deform_conv2d.launches = skinning.launches = conv_pass.launches = 0
+        reset_counts()
         outs = list(pipe.process_stream(pipe.prefetch(c) for c in clips))
         torch.cuda.synchronize()
         d, sk = deform_conv2d.launches, skinning.launches
@@ -522,12 +652,10 @@ def phase_trace_raft_slice(dev, ckpt, raft_ckpt):
     check(pipe.flow_fn is not None and pipe.flow_fn.takes_sequence,
           "trace2 did not build RAFT's sequence flow")
     flows = record_flows(pipe)
-    deform_conv2d.launches = skinning.launches = conv_pass.launches = 0
+    reset_counts()
     outs = list(pipe.process_stream(pipe.prefetch(c) for c in clips))
     torch.cuda.synchronize()
-    launches = {"deform_conv": deform_conv2d.launches,
-                "skinning": skinning.launches,
-                "basic_chain": conv_pass.launches}
+    launches = launch_counts()
     with_tracks = sum(o is not None for o in outs)
     check(len(outs) == len(clips) and with_tracks > 0, "RAFT: no tracks")
     check(launches["deform_conv"] == len(clips),
@@ -561,7 +689,7 @@ def phase_bev_slice(dev, params, adult, baby, images16):
     chain only when fused."""
     ckpt = _build.BUILD_DIR / "smoke_bev_weights.pth"
     torch.save(params, ckpt)
-    skinning.launches = conv_pass.launches = deform_conv2d.launches = 0
+    reset_counts()
     bev = BEV(bev_settings(["--GPU", str(dev.index or 0), "--model_path",
                             str(ckpt), "--smpl_path", "", "--smil_path", "",
                             "--center_thresh=-1e9"]))
@@ -589,12 +717,72 @@ def phase_bev_slice(dev, params, adult, baby, images16):
             check((dc > 0) == fuse, f"BEV fuse={fuse}: chain launches {dc}")
             runs[f"bfloat16{'+fuse' if fuse else ''},B={batch}"] = dict(
                 skinning=ds, basic_chain=dc)
-    launches = {"skinning": skinning.launches,
-                "basic_chain": conv_pass.launches,
-                "deform_conv": deform_conv2d.launches}
+    launches = launch_counts()
     check(launches["deform_conv"] == 0, "BEV path launched the deform")
     phase(4, "slice", path="bev", pipeline_runs=runs, launches=launches)
     return launches
+
+
+def phase_bf16_slices(dev, params, assets, images16, bev_params, adult,
+                      baby, trace_ckpt):
+    """act_dtype=bfloat16: ROMP (RompPipeline) and BEV (BevPipeline) at
+    batch 16, unfused and with fuse_chains (the chain's bf16 variant), and
+    TRACE (the trace2 CLI's pipeline and settings, zero flow, with bf16
+    activations) on three 8-frame clips (the deform's bf16 variant, one
+    launch a clip). Counters zeroed before each run and read after it.
+    Returns the launches per path."""
+    by_path, runs = {}, {}
+    for name, make, batch in (
+            ("romp", lambda cfg: RompPipeline(params, SmplModel(assets), cfg,
+                                              dev), 16),
+            ("bev", lambda cfg: BevPipeline(bev_params, adult, baby, cfg,
+                                            dev), 16)):
+        total = dict.fromkeys(KERNELS, 0)
+        for fuse in (False, True):
+            Config = RompConfig if name == "romp" else BevConfig
+            cfg = Config(compute_dtype="bfloat16", act_dtype="bfloat16",
+                         fuse_chains=fuse)
+            pipe = make(cfg)
+            reset_counts()
+            out = pipe(images16[:batch])
+            torch.cuda.synchronize()
+            c = launch_counts()
+            check_outputs(out, batch, cfg.max_person)
+            check(c["skinning"] == (1 if name == "romp" else 2),
+                  f"{name} bf16 fuse={fuse}: skinning {c}")
+            check((c["basic_chain_bf16"] > 0) == fuse
+                  and c["basic_chain"] == 0 and c["deform_conv"] == 0
+                  and c["deform_conv_bf16"] == 0,
+                  f"{name} bf16 fuse={fuse}: launches {c}")
+            runs[f"{name},bf16-act{'+fuse' if fuse else ''},B={batch}"] = c
+            total = {k: total[k] + c[k] for k in KERNELS}
+        by_path[f"{name}_bf16"] = total
+    base = trace_pipe(dev, trace_ckpt, "bfloat16")
+    pipe = TracePipeline(
+        torch.load(trace_ckpt, map_location="cpu"), base.smpl_adult,
+        base.smpl_baby, dataclasses.replace(base.cfg, act_dtype="bfloat16"),
+        base.seq_cfg, device=dev)
+    clips = trace_clips(3, 32)
+    reset_counts()
+    outs = list(pipe.process_stream(pipe.prefetch(c) for c in clips))
+    torch.cuda.synchronize()
+    c = launch_counts()
+    with_tracks = sum(o is not None for o in outs)
+    check(len(outs) == len(clips) and with_tracks > 0,
+          "TRACE bf16-act: no tracks")
+    check(c["deform_conv_bf16"] == len(clips) and c["deform_conv"] == 0,
+          f"TRACE bf16-act: deform launches {c}")
+    check(c["skinning"] == 2 * with_tracks,
+          f"TRACE bf16-act: skinning launches {c}")
+    for o in outs:
+        for key, val in (o or {}).items():
+            check(np.isfinite(np.asarray(val, np.float32)).all(),
+                  f"TRACE bf16-act {key} not finite")
+    runs["trace,bf16-act,3 clips"] = c
+    by_path["trace_bf16"] = c
+    phase(4, "slice", path="bf16-act", runs=runs,
+          clips_with_tracks=with_tracks, launches=by_path)
+    return by_path
 
 
 def phase_card_vs_cpu(dev, params, assets):
@@ -714,6 +902,119 @@ def mixed_convs_vs_cpu(gpu_net, cpu_net, run):
           and errs["rounded_share_above_1e5"] <= 0.01,
           f"mixed rounded convs card vs cpu: {errs}")
     return result, errs
+
+
+def bf16_vs_cpu(gpu_net, cpu_net, run):
+    """Call run(), the card's net on the bf16-activation path, with a hook
+    on every conv, fused chain and deform warp of gpu_net that holds its
+    output for the first sample against the CPU twin module on the same
+    input (the CPU's bf16 convs; the chain's and the deform's plain twins).
+    A bf16 conv rounds its f32 sum once, so the card and the CPU agree but
+    where summation order moves a sum across a rounding boundary: one bf16
+    step (2^-7 of max|ref| at most) at no more than 1% of the elements. The
+    chain: 5e-3 + 2^-8 of max|ref| (its f32 bar, plus the final rounding);
+    the deform: 1e-4 (the same rounding points, f32 summation order).
+    Returns run()'s result and the largest errors by kind."""
+    cpu_mods = dict(cpu_net.named_modules())
+    errs = {"conv_max": 0.0, "conv_share_differing": 0.0, "chain": 0.0,
+            "deform": 0.0}
+    checked = {"convs": 0, "chains": 0, "deforms": 0}
+
+    def hook(name):
+        def fn(module, args, out):
+            opts = args[-1]
+            check(isinstance(opts, LayerOpts) and opts.bf16_act,
+                  f"{name}: not run on the bf16-activation path")
+            cpu = cpu_mods[name]
+            if isinstance(module, Branch):
+                if not opts.fuse_chains:
+                    return
+                ref = basic_chain_plain(args[0][:1].cpu(), cpu.packed_w,
+                                        cpu.packed_scale, cpu.packed_shift,
+                                        len(cpu))
+                errs["chain"] = max(errs["chain"], rel_err(out[:1].cpu(), ref))
+                checked["chains"] += 1
+            elif isinstance(module, DeformWarp):
+                ref = cpu(args[0][:1].cpu(), args[1][:1].cpu(), opts)
+                errs["deform"] = max(errs["deform"],
+                                     rel_err(out[:1].cpu(), ref))
+                checked["deforms"] += 1
+            else:
+                ref = cpu(args[0][:1].cpu(), opts)
+                check(out.dtype == ref.dtype, f"{name}: {out.dtype}")
+                d = (out[:1].cpu().float() - ref.float()).abs() / max(
+                    float(ref.float().abs().max()), 1e-30)
+                errs["conv_max"] = max(errs["conv_max"], float(d.max()))
+                errs["conv_share_differing"] = max(
+                    errs["conv_share_differing"], float((d > 0).float().mean()))
+                checked["convs"] += 1
+        return fn
+
+    hooks = [m.register_forward_hook(hook(n))
+             for n, m in gpu_net.named_modules()
+             if isinstance(m, (Conv1d, Conv2d, Conv3d, Branch, DeformWarp))]
+    try:
+        with torch.inference_mode(), precision_flags(
+                RompConfig(compute_dtype="bfloat16", act_dtype="bfloat16")):
+            result = run()
+    finally:
+        for h in hooks:
+            h.remove()
+    check(errs["conv_max"] <= 2.0 ** -7
+          and errs["conv_share_differing"] <= 0.01,
+          f"bf16 convs card vs cpu: {errs}")
+    check(errs["chain"] <= 5e-3 + 2.0 ** -8, f"bf16 chains vs plain: {errs}")
+    check(errs["deform"] <= 1e-4, f"bf16 deform vs plain: {errs}")
+    return result, dict(errs, **checked)
+
+
+def phase_bf16_card_vs_cpu(dev, params, bev_params, trace_params):
+    """The bf16-activation path, full width: ROMP and BEV at batch 1 (one
+    seeded image), unfused (every conv hooked) and fused (every chain
+    hooked); TRACE on one 2-frame clip (every conv and the deform hooked).
+    The CPU twins get the same weights, cast to bf16 once by cast_bf16."""
+    image = torch.from_numpy((np.random.RandomState(90).rand(
+        1, 512, 512, 3) * 255).astype(np.uint8))
+    out = {}
+    for name, Net, fwd in (
+            ("romp", RompNet, lambda net, im, o: net(im, o)),
+            ("bev", BevNet, lambda net, im, o: bev_forward_maps(net, im, o))):
+        nets = []
+        for device in ("cpu", dev):
+            net = Net()
+            net.load_state_dict(params if name == "romp" else bev_params)
+            net = net.to(device).eval()
+            net.pack_chains()
+            nets.append(cast_bf16(net))
+        cpu, gpu = nets
+        for opts in (BF16_ACT, BF16_ACT_FUSED):
+            _, errs = bf16_vs_cpu(gpu, cpu, lambda: fwd(gpu, image.to(dev),
+                                                        opts))
+            check(errs["convs"] > 0 and (errs["chains"] > 0)
+                  == opts.fuse_chains, f"{name} bf16 hooks: {errs}")
+            out[f"{name}{'+fuse' if opts.fuse_chains else ''}"] = errs
+    frames = torch.from_numpy((np.random.RandomState(91).rand(
+        2, 512, 512, 3) * 255).astype(np.uint8))
+    nets = []
+    for device in ("cpu", dev):
+        net = TraceNet()
+        net.load_state_dict(trace_params)
+        nets.append(cast_bf16(net.to(device).eval()))
+    cpu, gpu = nets
+
+    def trace_run():
+        feats = gpu.extract_features(frames.to(dev), BF16_ACT)
+        feats = torch.cat([feats[:1], feats])
+        flows = feats.new_zeros((2, 2) + feats.shape[2:])
+        return trace_forward_maps(gpu, feats, flows, None, TRACE_CLIP,
+                                  BF16_ACT)[0]
+    maps, out["trace"] = bf16_vs_cpu(gpu, cpu, trace_run)
+    check(out["trace"]["deforms"] == 1 and out["trace"]["convs"] > 0,
+          f"TRACE bf16 hooks: {out['trace']}")
+    for field in maps._fields:
+        check(bool(torch.isfinite(getattr(maps, field).float()).all()),
+              f"TRACE bf16 {field} not finite")
+    phase(5, "card vs cpu", path="bf16-act", errs=out)
 
 
 def phase_trace_card_vs_cpu(dev, params):
@@ -880,12 +1181,129 @@ def phase_bev_card_vs_cpu(dev, params):
           param_rel_err=param_err, mixed_conv_errs=conv_errs)
 
 
+def sync_debug(batcher, size=512):
+    """run_batch once at the largest padded batch under
+    torch.cuda.set_sync_debug_mode("error"): a host sync anywhere in the
+    dispatch (upload, pipeline, the copies back) raises there. Returns
+    "none", or raises with the sync named."""
+    images = np.zeros((batcher.sizes[-1], size, size, 3), np.uint8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = batcher.run_batch(images)
+    except RuntimeError as exc:
+        raise AssertionError(f"run_batch synchronizes: {exc}") from exc
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    batcher.fetch(handle)
+    return "none"
+
+
+def serve_phase(model, ckpt, extra, smi):
+    """The server as `python -m romp_tpu_torch.serve` builds it (--GPU 0, a
+    free port, full width, max_batch 8, --precompile, bf16 activations,
+    the seeded weights file, synthetic SMPL): the sync check, then 50
+    sequential batch-1 round trips of a 480x640 image (p50, p99 after 5
+    untimed), then a burst of 64 requests from 8 client threads (wall time,
+    images/s, the realized average batch from `stats`)."""
+    argv = ["--GPU", "0", "--model", model, "--port", "0", "--max_batch",
+            "8", "--precompile", "--act_dtype", "bfloat16",
+            "--model_path", str(ckpt), "--smpl_path", "", *extra]
+    t0 = time.perf_counter()
+    server = build_server(serve_args(argv))
+    row = dict(model=model, argv=argv, setup_s=time.perf_counter() - t0,
+               card=smi)
+    try:
+        row["sync_debug_run_batch"] = sync_debug(server.batcher)
+        rng = np.random.RandomState(100)
+        img = (rng.rand(480, 640, 3) * 255).astype(np.uint8)
+        client = InferenceClient(port=server.port, timeout=600)
+        for _ in range(5):
+            client.infer(img)
+        lat = []
+        for _ in range(50):
+            t = time.perf_counter()
+            res = client.infer(img)
+            lat.append((time.perf_counter() - t) * 1e3)
+        check(res["verts"].shape[1:] == (V, 3), f"{model} serve: verts")
+        for key, val in res.items():
+            check(np.isfinite(val.astype(np.float32)).all(),
+                  f"{model} serve: {key} not finite")
+        row.update(batch1_ms_p50=float(np.percentile(lat, 50)),
+                   batch1_ms_p99=float(np.percentile(lat, 99)),
+                   persons_per_image=int(res["verts"].shape[0]))
+        s0 = client.stats()
+        errors = []
+
+        def burst_client(i):
+            try:
+                c = InferenceClient(port=server.port, timeout=600)
+                for j in range(8):
+                    r = c.infer((np.random.RandomState(200 + 8 * i + j).rand(
+                        480, 640, 3) * 255).astype(np.uint8))
+                    check(np.isfinite(r["cam"]).all(), "burst: cam")
+                c.close()
+            except Exception as exc:  # noqa: BLE001 — raised below
+                errors.append(exc)
+
+        threads = [threading.Thread(target=burst_client, args=(i,))
+                   for i in range(8)]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        wall = time.perf_counter() - t
+        check(not errors, f"{model} burst: {errors}")
+        s1 = client.stats()
+        items = s1["items_run"] - s0["items_run"]
+        batches = s1["batches_run"] - s0["batches_run"]
+        check(items == 64, f"{model} burst: {items} items")
+        row.update(burst_requests=64, burst_clients=8, burst_wall_s=wall,
+                   burst_img_per_s=64 / wall,
+                   burst_avg_batch=items / max(batches, 1),
+                   stats_after=s1)
+        if "--crowd" in extra:
+            pano = (rng.rand(512, 1536, 3) * 255).astype(np.uint8)
+            t = time.perf_counter()
+            res = client.infer(pano)
+            row["panorama_ms"] = (time.perf_counter() - t) * 1e3
+            s2 = client.stats()
+            row["panorama_windows"] = s2["items_run"] - s1["items_run"]
+            check(row["panorama_windows"] >= 2, f"crowd route: {s2}")
+            row["panorama_persons"] = int(res["cam"].shape[0]) if res else 0
+            for key, val in res.items():
+                check(np.isfinite(np.asarray(val, np.float32)).all(),
+                      f"crowd route: {key} not finite")
+        client.close()
+    finally:
+        server.close()
+    return row
+
+
+def phase_serve(dev, romp_ckpt, bev_ckpt, smi):
+    """ROMP, then BEV with the crowd route, behind the server. Returns the
+    launches of the whole phase."""
+    reset_counts()
+    rows = [serve_phase("romp", romp_ckpt, [], smi),
+            serve_phase("bev", bev_ckpt, ["--smil_path", "", "--crowd"], smi)]
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    check(launches["skinning"] > 0, f"serving launches {launches}")
+    for row in rows:
+        phase("serve", row.pop("model"), **row)
+    return launches
+
+
 def phase_time(dev, params, assets, smi):
     rows = []
-    for fuse in (False, True):
-        cfg = RompConfig(compute_dtype="bfloat16", fuse_chains=fuse)
+    for act, fuse in (("float32", False), ("float32", True),
+                      ("bfloat16", False), ("bfloat16", True)):
+        cfg = RompConfig(compute_dtype="bfloat16", act_dtype=act,
+                         fuse_chains=fuse)
         pipe = RompPipeline(params, SmplModel(assets), cfg, dev)
-        for batch, reps in ((1, 20), (64, 5)):
+        batches = ((1, 20), (64, 5)) if act == "float32" else ((64, 5),)
+        for batch, reps in batches:
             images = (np.random.RandomState(batch).rand(
                 batch, 512, 512, 3) * 255).astype(np.uint8)
             for _ in range(2):
@@ -899,7 +1317,7 @@ def phase_time(dev, params, assets, smi):
                 times.append(time.perf_counter() - t0)
             sec = statistics.median(times)
             rows.append(dict(path="romp", compute_dtype="bfloat16",
-                             fuse_chains=fuse,
+                             act_dtype=act, fuse_chains=fuse,
                              batch=batch, median_s=sec, img_per_s=batch / sec,
                              reps=reps, card=smi))
     for row in rows:
@@ -1022,10 +1440,16 @@ def main():
     adult = SmplModel(synthetic_assets(seed=0, num_betas=11))
     baby = SmplModel(synthetic_assets(seed=1, num_betas=10))
     bev_launches = phase_bev_slice(dev, bev_params, adult, baby, images16)
+    bf16_launches = phase_bf16_slices(dev, params, assets, images16,
+                                      bev_params, adult, baby, trace_ckpt)
     phase_card_vs_cpu(dev, params, assets)
     phase_trace_card_vs_cpu(dev, trace_params)
     phase_raft_card_vs_cpu(dev)
     phase_bev_card_vs_cpu(dev, bev_params)
+    phase_bf16_card_vs_cpu(dev, params, bev_params, trace_params)
+    serve_launches = phase_serve(dev, _build.BUILD_DIR / "smoke_weights.pth",
+                                 _build.BUILD_DIR / "smoke_bev_weights.pth",
+                                 smi)
     phase_time(dev, params, assets, smi)
     phase_trace_time(dev, trace_ckpt, raft_ckpt, smi)
     phase_bev_time(dev, bev_params, adult, baby, smi)
@@ -1037,19 +1461,27 @@ def main():
                         "romp_tpu/ops/pallas_fuse.py:134"),
         "deform_conv": ("romp_tpu_torch/csrc/deform_conv.cu",
                         "romp_tpu/ops/pallas_deform.py:103"),
+        "basic_chain_bf16": ("romp_tpu_torch/csrc/basic_chain.cu",
+                             "romp_tpu/ops/pallas_fuse.py:134"),
+        "deform_conv_bf16": ("romp_tpu_torch/csrc/deform_conv.cu",
+                             "romp_tpu/ops/pallas_deform.py:103"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
         # skinning: its largest main-path shape (N = 64 x 64); the chain:
         # the sum over the four branch shapes at B=2, one stage-4 module's
-        # chains (PR 1's definition, so the numbers compare); the deform:
-        # TRACE's shape, one launch per clip
+        # chains (PR 1's definition, so the numbers compare), its bf16
+        # variant the same sum at B=64; the deforms: TRACE's shape, one
+        # launch per clip
         timed = ([r for r in rows[name] if r["batch"] == 2]
-                 if name == "basic_chain" else rows[name][-1:])
+                 if name == "basic_chain" else rows[name]
+                 if name == "basic_chain_bf16" else rows[name][-1:])
         by_path = {"romp": romp_launches[name],
                    "trace": trace_launches[name],
                    "trace+raft": raft_launches[name],
-                   "bev": bev_launches[name]}
+                   "bev": bev_launches[name],
+                   **{p: c[name] for p, c in bf16_launches.items()},
+                   "serve": serve_launches[name]}
         device = [r["device_ms"] for r in timed]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,

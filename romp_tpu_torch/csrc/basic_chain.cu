@@ -79,6 +79,16 @@
 // pass's MMAs, its copies and its epilogue take about as long as their sum;
 // they do not hide one another.
 //
+// bf16 in and out (romp_basic_chain_bf16; the bf16-activation path, where
+// the TPU kernel casts its bf16 input to f32 and its f32 result to bf16,
+// pallas_fuse.py:145-146, 174): the conversion reads the bf16 NCHW input
+// (bf16 NCHW -> bf16 NHWC, exact); block 0's residual is that bf16 input,
+// widened exactly in the epilogue (prefetched as the f32 residual is, runs
+// of 8 pixels, where W % 8 == 0); the inner blocks' outputs stay f32, as in the TPU kernel's
+// VMEM; the last pass's epilogue rounds its f32 result to bf16 NCHW
+// itself. So it equals the f32 chain on the widened input, cast to bf16,
+// bit for bit (the same plan and passes).
+//
 // Tried on the H100 against this design and not kept (no gain beyond the
 // run-to-run spread, or a loss): wgmma.m64nNk16 with A from registers
 // (ldmatrix) and B through a no-swizzle N-major descriptor, with the
@@ -130,6 +140,10 @@ struct Tile {
   static constexpr int kM = TH * kTileW;
   static constexpr int kRLd = kM + 4;
   static_assert(TN * kRLd * 4 <= kStageElems * 2, "residual > a stage");
+  // the bf16 residual's block (block 0 of the bf16 chain), rows of kM + 8
+  // values (16-byte aligned rows)
+  static constexpr int kRLdB = kM + 8;
+  static_assert(TN * kRLdB * 2 <= kStageElems * 2, "residual > a stage");
 };
 
 struct ConvArgs {
@@ -138,8 +152,10 @@ struct ConvArgs {
   const float* scale;       // (C,)
   const float* shift;       // (C,)
   const float* residual;    // (B, C, H, W) f32 or null
+  const __nv_bfloat16* residual_bf16;   // (B, C, H, W) bf16 or null
   float* out;               // (B, C, H, W) f32 or null
   __nv_bfloat16* out_bf16;  // (B, H, W, C) bf16 or null
+  __nv_bfloat16* out_nchw_bf16;   // (B, C, H, W) bf16 or null
   float* partial;           // (ksplit, B, C, H, W) f32, or null (ksplit 1)
   int batch, C, H, W, tiles_w, tiles_hw, chunks_per_split;
 };
@@ -246,6 +262,28 @@ __device__ __forceinline__ void load_residual(const ConvArgs& p,
   }
 }
 
+// The same for a bf16 residual: runs of 8 pixels (one tile row), into r_s
+// (Tile::kRLdB bf16 values a channel). Only where W % 8 == 0.
+template <int TH, int TN>
+__device__ __forceinline__ void load_residual_bf16(const ConvArgs& p,
+                                                   uint32_t r_s, int b,
+                                                   int ty0, int tx0, int n0) {
+  using T = Tile<TH, TN>;
+  const size_t plane = (size_t)p.H * p.W;
+  for (int i = threadIdx.x; i < TN * (T::kM / 8); i += T::kThreads) {
+    const int nl = i / (T::kM / 8);
+    const int m = (i % (T::kM / 8)) * 8;
+    const int n = n0 + nl;
+    const int gy = ty0 + m / kTileW;
+    const bool ok = n < p.C && gy < p.H && tx0 < p.W;
+    const __nv_bfloat16* src =
+        ok ? p.residual_bf16 + ((size_t)b * p.C + n) * plane +
+                 (size_t)gy * p.W + tx0
+           : p.residual_bf16;
+    cp_async16(r_s + (nl * T::kRLdB + m) * 2, src, ok);
+  }
+}
+
 template <int TH, int TN>
 __global__ void __launch_bounds__(Tile<TH, TN>::kThreads)
 conv3x3_bn_act_mma_kernel(const ConvArgs p) {
@@ -290,6 +328,8 @@ conv3x3_bn_act_mma_kernel(const ConvArgs p) {
   const int nch = p.chunks_per_split;
   const bool prefetch = p.W % 4 == 0 && p.residual != nullptr &&
                         p.partial == nullptr && !(kSkip & 4);
+  const bool prefetch_b = p.W % 8 == 0 && p.residual_bf16 != nullptr &&
+                          p.partial == nullptr && !(kSkip & 4);
   load_chunk<TH, TN>(p, s0, s0 + T::kAElems * 2, b, ty0, tx0, n0, ch0);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 
@@ -302,6 +342,8 @@ conv3x3_bn_act_mma_kernel(const ConvArgs p) {
                          ch0 + it + 1);
     } else if (prefetch) {
       load_residual<TH, TN>(p, s, b, ty0, tx0, n0);
+    } else if (prefetch_b) {
+      load_residual_bf16<TH, TN>(p, s, b, ty0, tx0, n0);
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");   // chunk `it` has landed
@@ -358,7 +400,8 @@ conv3x3_bn_act_mma_kernel(const ConvArgs p) {
   const size_t img = (size_t)b * p.C * plane;
   const float* rs = reinterpret_cast<const float*>(smem + (nch % kStages) *
                                                    T::kStageElems);
-  if (prefetch) {
+  const __nv_bfloat16* rsb = smem + (nch % kStages) * T::kStageElems;
+  if (prefetch || prefetch_b) {
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     __syncthreads();
   }
@@ -408,11 +451,21 @@ conv3x3_bn_act_mma_kernel(const ConvArgs p) {
                            half * 8;
           a[0] += r[0];
           a[1] += r[T::kRLd];
+        } else if (prefetch_b) {
+          const __nv_bfloat16* r = rsb + (n - n0) * T::kRLdB + wm + mi * 16 +
+                                   g + half * 8;
+          a[0] += __bfloat162float(r[0]);
+          a[1] += __bfloat162float(r[T::kRLdB]);
         } else if (p.residual != nullptr && pix[mi][half] >= 0) {
           const float* r = p.residual + img + (size_t)n * plane +
                            pix[mi][half];
           a[0] += r[0];
           a[1] += r[plane];
+        } else if (p.residual_bf16 != nullptr && pix[mi][half] >= 0) {
+          const __nv_bfloat16* r = p.residual_bf16 + img +
+                                   (size_t)n * plane + pix[mi][half];
+          a[0] += __bfloat162float(r[0]);
+          a[1] += __bfloat162float(r[plane]);
         }
       }
   }
@@ -437,6 +490,12 @@ conv3x3_bn_act_mma_kernel(const ConvArgs p) {
               p.out_bf16 + ((size_t)b * plane + pix[mi][half]) * p.C + n) =
               __floats2bfloat162_rn(v0, v1);
         }
+        if (p.out_nchw_bf16 != nullptr) {
+          __nv_bfloat16* o =
+              p.out_nchw_bf16 + img + (size_t)n * plane + pix[mi][half];
+          o[0] = __float2bfloat16_rn(v0);
+          o[plane] = __float2bfloat16_rn(v1);
+        }
       }
     }
 }
@@ -453,8 +512,10 @@ __global__ void ksplit_reduce_kernel(const ConvArgs p, int ksplit) {
     const int n = (int)((idx / plane) % p.C);
     float o = a * p.scale[n] + p.shift[n];
     if (p.residual != nullptr) o += p.residual[idx];
+    if (p.residual_bf16 != nullptr) o += __bfloat162float(p.residual_bf16[idx]);
     o = fmaxf(o, 0.f);
     if (p.out != nullptr) p.out[idx] = o;
+    if (p.out_nchw_bf16 != nullptr) p.out_nchw_bf16[idx] = __float2bfloat16_rn(o);
     if (p.out_bf16 != nullptr) {
       const size_t b = idx / (plane * p.C);
       p.out_bf16[(b * plane + idx % plane) * p.C + n] =
@@ -463,9 +524,16 @@ __global__ void ksplit_reduce_kernel(const ConvArgs p, int ksplit) {
   }
 }
 
-// (B, C, HW) f32 -> (B, HW, C) bf16, rounded to nearest even: the operand
-// of a chain's first conv. 32 x 32 tiles transposed through shared memory.
-__global__ void nchw_to_nhwc_bf16_kernel(const float* __restrict__ x,
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// (B, C, HW) f32 or bf16 -> (B, HW, C) bf16, rounded to nearest even (exact
+// from bf16): the operand of a chain's first conv. 32 x 32 tiles
+// transposed through shared memory.
+template <typename Tin>
+__global__ void nchw_to_nhwc_bf16_kernel(const Tin* __restrict__ x,
                                          __nv_bfloat16* __restrict__ y,
                                          int C, int HW) {
   __shared__ float t[32][33];
@@ -475,7 +543,9 @@ __global__ void nchw_to_nhwc_bf16_kernel(const float* __restrict__ x,
   for (int i = threadIdx.y; i < 32; i += blockDim.y) {
     const int c = c0 + i;
     const int px = p0 + threadIdx.x;
-    if (c < C && px < HW) t[i][threadIdx.x] = x[(b * C + c) * HW + px];
+    if (c < C && px < HW) {
+      t[i][threadIdx.x] = to_f32(x[(b * C + c) * HW + px]);
+    }
   }
   __syncthreads();
   for (int i = threadIdx.y; i < 32; i += blockDim.y) {
@@ -558,10 +628,12 @@ cudaError_t run_pass(const ConvArgs& p, const Plan& plan,
   return cudaGetLastError();
 }
 
-cudaError_t to_nhwc_bf16(const float* x, __nv_bfloat16* y, int batch, int c,
+template <typename Tin>
+cudaError_t to_nhwc_bf16(const Tin* x, __nv_bfloat16* y, int batch, int c,
                          int hw, cudaStream_t stream) {
   const dim3 grid((hw + 31) / 32, (c + 31) / 32, batch);
-  nchw_to_nhwc_bf16_kernel<<<grid, dim3(32, 8), 0, stream>>>(x, y, c, hw);
+  nchw_to_nhwc_bf16_kernel<Tin><<<grid, dim3(32, 8), 0, stream>>>(x, y, c,
+                                                                  hw);
   return cudaGetLastError();
 }
 
@@ -640,6 +712,53 @@ extern "C" int romp_basic_chain(const float* x, void* xb, void* hb,
       p.out = j == 0 ? nullptr : outs[n % 2];
       // conv2 overwrites xb with bf16(y_next): conv1 read it already
       p.out_bf16 = j == 0 ? h_b : (n + 1 < blocks ? x_b : nullptr);
+      err = run_pass(p, plan, stream);
+    }
+    y = outs[n % 2];
+  }
+  return (int)err;
+}
+
+// The chain with bf16 input and output (see the header): x and out are
+// (batch, c, h, w) bf16; y_1 .. y_{blocks-1} alternate in out0 / out1, two
+// f32 buffers of x's shape (out1 unused below three blocks); the last
+// block's conv2 writes out only. Scratch, weights and plan as for
+// romp_basic_chain.
+extern "C" int romp_basic_chain_bf16(const void* x, void* xb, void* hb,
+                                     float* out0, float* out1, void* out,
+                                     float* partial, const void* w,
+                                     const float* scale, const float* shift,
+                                     int blocks, int batch, int c, int h,
+                                     int w_dim, int tile_h, int tile_n,
+                                     int ksplit, int smem_bytes,
+                                     cudaStream_t stream) {
+  const Plan plan{tile_h, tile_n, ksplit, smem_bytes};
+  ConvArgs p{};
+  p.partial = partial;
+  if (blocks <= 0 || !set_geometry(&p, batch, c, h, w_dim, plan)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const auto* x_in = reinterpret_cast<const __nv_bfloat16*>(x);
+  auto* x_b = reinterpret_cast<__nv_bfloat16*>(xb);
+  auto* h_b = reinterpret_cast<__nv_bfloat16*>(hb);
+  const auto* w_b = reinterpret_cast<const __nv_bfloat16*>(w);
+  cudaError_t err = to_nhwc_bf16(x_in, x_b, batch, c, h * w_dim, stream);
+  const float* y = nullptr;   // y_n in f32 (n >= 1); y_0 is x_in
+  float* outs[2] = {out0, out1};
+  for (int n = 0; n < blocks && err == cudaSuccess; ++n) {
+    const bool last = n + 1 == blocks;
+    for (int j = 0; j < 2 && err == cudaSuccess; ++j) {
+      const int k = 2 * n + j;
+      p.w = w_b + (size_t)k * 9 * c * c;
+      p.scale = scale + (size_t)k * c;
+      p.shift = shift + (size_t)k * c;
+      p.x = j == 0 ? x_b : h_b;
+      p.residual = j == 0 || n == 0 ? nullptr : y;
+      p.residual_bf16 = j == 1 && n == 0 ? x_in : nullptr;
+      p.out = j == 0 || last ? nullptr : outs[n % 2];
+      p.out_nchw_bf16 = j == 1 && last ? reinterpret_cast<__nv_bfloat16*>(out)
+                                       : nullptr;
+      p.out_bf16 = j == 0 ? h_b : (last ? nullptr : x_b);
       err = run_pass(p, plan, stream);
     }
     y = outs[n % 2];

@@ -51,6 +51,23 @@
 //   gather scalars; C past a multiple of 32 and Cout past 32 take more
 //   chunks and CTAs, zero-padded.
 // - The output is NCHW f32, stored from the accumulators.
+//
+// bf16 variant (romp_deform_conv2d_bf16; TRACE's bf16-activation path, which
+// passes bf16 x and weight with f32 offsets, romp_tpu/models/trace.py:
+// 198-201). It reproduces the rounding points of the JAX package's
+// deform_conv2d on bf16 operands (romp_tpu/ops/deform_conv.py:43-116): the
+// fractions fy, fx rounded to bf16 and 1 - f rounded again; the blend of
+// the two rows at each corner column rounded to bf16; the blend of the two
+// columns rounded to bf16 (the sample); the weight product accumulated in
+// f32. Each blend is two exact products (bf16 x bf16) and one f32 add, so
+// its one rounding to bf16 is JAX's. The samples go to shared memory as
+// bf16 (rows of 40 values: conflict-free ldmatrix) and the contraction runs
+// on mma.sync.m16n8k16 bf16 with f32 accumulation, two k steps a chunk,
+// the weights prepared by the prologue as bf16 B fragments. The chunk
+// schedule (offsets and weights by cp.async, samples double-buffered one
+// chunk ahead of the MMAs) is the f32 kernel's. Output f32. A simple
+// kernel first: it shares the f32 kernel's gathers, which bind it.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -440,6 +457,316 @@ int launch(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------- bf16 --
+
+constexpr int kSStride = kCols + 8;   // bf16 values a sample row
+constexpr int kWFragB = 2 * 4 * 32;   // uint2 B fragments a chunk
+
+size_t smem_bytes_bf16(int ngc) {
+  return (size_t)3 * kWFragB * 8 + (size_t)2 * kPix * kSStride * 2 +
+         (size_t)2 * 2 * ngc * kPix * 4;
+}
+
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The prologue of the bf16 variant: x (B, C, HW) bf16 -> (B, G, HW, Cg)
+// bf16; the weights as m16n8k16 B fragments, one uint2 (b0, b1) per
+// (output-channel tile z, chunk, k step ks of 16, n8 tile, lane): b0 =
+// (W[co][ci], W[co][ci + 1]), b1 = (W[co][ci + 8], W[co][ci + 9]) with co =
+// z*32 + nt*8 + lane/4, ci = cb*32 + ks*16 + 2*(lane%4); zero past C and
+// Cout.
+__global__ void __launch_bounds__(256)
+deform_prep_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                        __nv_bfloat16* __restrict__ xg,
+                        const __nv_bfloat16* __restrict__ w,
+                        uint2* __restrict__ wfrag, int HW, int Cg,
+                        int x_total, int C, int cout, int ncb, int w_total) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < x_total) {
+    const int bg = i / HW;      // b * G + g
+    const int p = i - bg * HW;
+    const __nv_bfloat16* src = x + (size_t)bg * Cg * HW + p;
+    __nv_bfloat16* dst = xg + (size_t)i * Cg;
+    for (int c = 0; c < Cg; ++c) dst[c] = src[(size_t)c * HW];
+    return;
+  }
+  i -= x_total;
+  if (i >= w_total) return;
+  const int ln = i & 31, nt = (i >> 5) & 3, ks = (i >> 7) & 1;
+  const int chunk = (i >> 8) % (kTaps * ncb);
+  const int z = (i >> 8) / (kTaps * ncb);
+  const int k = chunk / ncb, cb = chunk - k * ncb;
+  const int co = z * kN + nt * 8 + (ln >> 2);
+  const int ci = cb * kCols + ks * 16 + 2 * (ln & 3);
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = ci + (j & 1) + (j >> 1) * 8;
+    v[j] = co < cout && c < C
+        ? __bfloat162float(w[((size_t)co * C + c) * kTaps + k]) : 0.f;
+  }
+  wfrag[i] = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+}
+
+// One sample's corners with JAX's bf16 weights: fy, fx = bf16(fraction),
+// wy0, wx0 = bf16(1 - f); a corner outside the image has a zero flag.
+struct BlendBf16 {
+  int i00, i01, i10, i11;
+  float v00, v01, v10, v11;   // 1 inside, 0 outside
+  float fy, wy0, fx, wx0;
+};
+
+__device__ __forceinline__ BlendBf16 blend_bf16(float ys, float xs, int H,
+                                                int W) {
+  // as in corners(): clamping far-outside coordinates changes nothing
+  ys = fminf(fmaxf(ys, -2.f), (float)H + 1.f);
+  xs = fminf(fmaxf(xs, -2.f), (float)W + 1.f);
+  const float y0f = floorf(ys), x0f = floorf(xs);
+  BlendBf16 r;
+  r.fy = bf16r(ys - y0f);
+  r.fx = bf16r(xs - x0f);
+  r.wy0 = bf16r(1.f - r.fy);
+  r.wx0 = bf16r(1.f - r.fx);
+  const int y0 = (int)y0f, x0 = (int)x0f;
+  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
+  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
+  const int yc0 = min(max(y0, 0), H - 1), yc1 = min(max(y0 + 1, 0), H - 1);
+  const int xc0 = min(max(x0, 0), W - 1), xc1 = min(max(x0 + 1, 0), W - 1);
+  r.v00 = vy0 && vx0 ? 1.f : 0.f;
+  r.v01 = vy0 && vx1 ? 1.f : 0.f;
+  r.v10 = vy1 && vx0 ? 1.f : 0.f;
+  r.v11 = vy1 && vx1 ? 1.f : 0.f;
+  r.i00 = yc0 * W + xc0;
+  r.i01 = yc0 * W + xc1;
+  r.i10 = yc1 * W + xc0;
+  r.i11 = yc1 * W + xc1;
+  return r;
+}
+
+// JAX's sample from the four corner values (bf16, widened): the rows
+// blended at each corner column, then the columns, each rounded to bf16.
+__device__ __forceinline__ float sample_bf16(const BlendBf16& r, float c00,
+                                             float c01, float c10,
+                                             float c11) {
+  const float r0 = bf16r(r.wy0 * (c00 * r.v00) + r.fy * (c10 * r.v10));
+  const float r1 = bf16r(r.wy0 * (c01 * r.v01) + r.fy * (c11 * r.v11));
+  return bf16r(r.wx0 * r0 + r.fx * r1);
+}
+
+__device__ __forceinline__ void unpack4(uint2 v, float* f) {
+  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
+  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
+  f[0] = __low2float(a);
+  f[1] = __high2float(a);
+  f[2] = __low2float(b);
+  f[3] = __high2float(b);
+}
+
+struct ArgsBf16 {
+  const __nv_bfloat16* xg;   // (B, G, HW, Cg)
+  const float* off;          // (B, G * 18, HW)
+  const uint2* wfrag;        // B fragments, see deform_prep_bf16_kernel
+  float* out;                // (B, Cout, HW)
+  int C, H, W, G, Cg, cout, pad, ngc;
+};
+
+// kCg: 4 (TRACE) or 0 (read at run time); Cg % 4 == 0 gathers 8-byte
+// quads, other Cg scalars. kVec: floats per cp.async of the offsets.
+template <int kCg, int kVec>
+__global__ void __launch_bounds__(kThreads, 3)
+deform_conv_bf16_kernel(ArgsBf16 a) {
+  extern __shared__ float4 smem4[];
+  uint2* wf = reinterpret_cast<uint2*>(smem4);               // [3][kWFragB]
+  __nv_bfloat16* samp =
+      reinterpret_cast<__nv_bfloat16*>(wf + 3 * kWFragB);   // [2][kPix][40]
+  float* obuf = reinterpret_cast<float*>(samp + 2 * kPix * kSStride);
+
+  const int Cg = kCg ? kCg : a.Cg;
+  const bool quad = Cg % 4 == 0;
+  const int HW = a.H * a.W;
+  const int tiles_w = (a.W + kTW - 1) / kTW;
+  const int ty0 = blockIdx.x / tiles_w * kTH;
+  const int tx0 = (blockIdx.x % tiles_w) * kTW;
+  const int b = blockIdx.y;
+  const int co0 = blockIdx.z * kN;
+  const int ncb = (a.C + kCols - 1) / kCols;
+  const int nc = kTaps * ncb;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const float* offb = a.off + (size_t)b * a.G * 2 * kTaps * HW;
+  const __nv_bfloat16* xb = a.xg + (size_t)b * a.G * HW * Cg;
+  const uint2* wsrc = a.wfrag + (size_t)blockIdx.z * nc * kWFragB;
+
+  auto load = [&](int c) {
+    const int k = c / ncb, cb = c - k * ncb;
+    const int g_first = cb * kCols / Cg;
+    const int g_last = (min(a.C, cb * kCols + kCols) - 1) / Cg;
+    float* dst = obuf + (c & 1) * 2 * a.ngc * kPix;
+    const int per_plane = kPix / kVec;
+    const int n = (g_last - g_first + 1) * 2 * per_plane;
+    for (int i = tid; i < n; i += kThreads) {
+      const int plane = i / per_plane;
+      const int e = (i - plane * per_plane) * kVec;
+      const int ch = ((g_first + plane / 2) * kTaps + k) * 2 + (plane & 1);
+      const int y = ty0 + e / kTW, x = tx0 + e % kTW;
+      const bool ok = y < a.H && x < a.W;
+      cp_async<4 * kVec>(smem_addr(dst + plane * kPix + e),
+                         ok ? offb + (size_t)ch * HW + y * a.W + x : a.off,
+                         ok);
+    }
+    for (int i = tid; i < kWFragB / 2; i += kThreads) {   // 16 B a copy
+      cp_async<16>(smem_addr(wf + (c % 3) * kWFragB + 2 * i),
+                   wsrc + (size_t)c * kWFragB + 2 * i, true);
+    }
+  };
+
+  auto sample = [&](int c) {
+    const int k = c / ncb, cb = c - k * ncb;
+    const int ky = k / 3, kx = k - ky * 3;
+    const int g_first = cb * kCols / Cg;
+    const float* ob = obuf + (c & 1) * 2 * a.ngc * kPix;
+    __nv_bfloat16* sc = samp + (c & 1) * kPix * kSStride;
+    const int px = tid % kPix;
+    const float yb = (float)(ty0 + px / kTW + ky - a.pad);
+    const float xb0 = (float)(tx0 + px % kTW + kx - a.pad);
+    if (quad) {
+#pragma unroll
+      for (int j = 0; j < kCols / 4 / (kThreads / kPix); ++j) {
+        const int q = tid / kPix + j * (kThreads / kPix);
+        const int ci = cb * kCols + 4 * q;
+        float s[4] = {0.f, 0.f, 0.f, 0.f};
+        if (ci < a.C) {
+          const int g = ci / Cg;
+          const float* og = ob + (g - g_first) * 2 * kPix + px;
+          const BlendBf16 r =
+              blend_bf16(yb + og[0], xb0 + og[kPix], a.H, a.W);
+          const uint2* xq = reinterpret_cast<const uint2*>(
+              xb + (size_t)g * HW * Cg + (ci - g * Cg));
+          const int st = Cg / 4;
+          float c00[4], c01[4], c10[4], c11[4];
+          unpack4(__ldg(xq + (size_t)r.i00 * st), c00);
+          unpack4(__ldg(xq + (size_t)r.i01 * st), c01);
+          unpack4(__ldg(xq + (size_t)r.i10 * st), c10);
+          unpack4(__ldg(xq + (size_t)r.i11 * st), c11);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[e] = sample_bf16(r, c00[e], c01[e], c10[e], c11[e]);
+          }
+        }
+        *reinterpret_cast<uint2*>(sc + px * kSStride + 4 * q) =
+            make_uint2(pack_bf16(s[0], s[1]), pack_bf16(s[2], s[3]));
+      }
+    } else {
+      for (int j = 0; j < kCols / (kThreads / kPix); ++j) {
+        const int col = tid / kPix + j * (kThreads / kPix);
+        const int ci = cb * kCols + col;
+        float v = 0.f;
+        if (ci < a.C) {
+          const int g = ci / Cg;
+          const float* og = ob + (g - g_first) * 2 * kPix + px;
+          const BlendBf16 r =
+              blend_bf16(yb + og[0], xb0 + og[kPix], a.H, a.W);
+          const __nv_bfloat16* xc = xb + (size_t)g * HW * Cg + (ci - g * Cg);
+          v = sample_bf16(r, __bfloat162float(xc[(size_t)r.i00 * Cg]),
+                          __bfloat162float(xc[(size_t)r.i01 * Cg]),
+                          __bfloat162float(xc[(size_t)r.i10 * Cg]),
+                          __bfloat162float(xc[(size_t)r.i11 * Cg]));
+        }
+        sc[px * kSStride + col] = __float2bfloat16_rn(v);
+      }
+    }
+  };
+
+  float acc[4][4] = {};
+  // S[c & 1] . W -> acc: this warp's 16 pixels, 4 n8 tiles, k steps of 16
+  auto contract = [&](int c) {
+    const int cb = c % ncb;
+    const int nks = (min(kCols, a.C - cb * kCols) + 15) / 16;
+    // ldmatrix: lanes 0-15 rows 0-15 at k 0, lanes 16-31 the same at k 8:
+    // a0 (rows 0-7, k 0-7), a1 (8-15, 0-7), a2 (0-7, 8-15), a3 (8-15, 8-15)
+    const uint32_t sa = smem_addr(samp + (c & 1) * kPix * kSStride +
+                                  (warp * 16 + (lane & 15)) * kSStride +
+                                  (lane >> 4) * 8);
+    const uint2* wd = wf + (c % 3) * kWFragB + lane;
+    for (int ks = 0; ks < nks; ++ks) {
+      uint32_t af[4];
+      ldmatrix_x4(sa + ks * 16 * 2, af);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const uint2 bw = wd[(ks * 4 + nt) * 32];
+        mma_bf16(acc[nt], af, bw.x, bw.y);
+      }
+    }
+  };
+
+  load(0);
+  cp_commit();
+  if (nc > 1) load(1);
+  cp_commit();
+  cp_wait<1>();
+  __syncthreads();
+  sample(0);
+  for (int c = 0; c < nc; ++c) {
+    cp_wait<0>();
+    __syncthreads();
+    if (c + 2 < nc) load(c + 2);
+    cp_commit();
+    if (c + 1 < nc) sample(c + 1);
+    contract(c);
+  }
+
+  float* ob = a.out + (size_t)b * a.cout * HW;
+#pragma unroll
+  for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int px = warp * 16 + g8 + (r >> 1) * 8;
+      const int y = ty0 + px / kTW, x = tx0 + px % kTW;
+      const int co = co0 + nt * 8 + 2 * t4 + (r & 1);
+      if (y < a.H && x < a.W && co < a.cout) {
+        ob[(size_t)co * HW + y * a.W + x] = acc[nt][r];
+      }
+    }
+  }
+}
+
+template <int kCg, int kVec>
+int launch_bf16(const ArgsBf16& a, dim3 grid, size_t smem,
+                cudaStream_t stream) {
+  // 43,008 bytes at TRACE's shape; past 48 KB (many groups of one
+  // channel) the limit is raised once per device, as for the f32 kernel
+  static size_t smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && (dev >= 64 || smem_set[dev] < smem)) {
+    err = cudaFuncSetAttribute(deform_conv_bf16_kernel<kCg, kVec>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  deform_conv_bf16_kernel<kCg, kVec><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x (b, c, h, w), off (b, g*2*9, h, w), w (cout, c, 3, 3) -> out
@@ -484,4 +811,50 @@ extern "C" int romp_deform_conv2d_f32(const float* x, const float* off,
   }
   return vec ? launch<0, 4>(a, grid, smem, stream)
              : launch<0, 1>(a, grid, smem, stream);
+}
+
+// The bf16 variant (see the header): x (b, c, h, w) and w (cout, c, 3, 3)
+// bf16, off (b, g*2*9, h, w) f32 -> out (b, cout, h, w) f32, all
+// contiguous; scratch: 16-byte aligned, ceil(cout/32) * 9 * ceil(c/32) *
+// 256 * 8 bytes of weight fragments, then b*c*h*w bf16 values of x
+// regrouped (ops/deform_conv.py `scratch_bytes_bf16`).
+extern "C" int romp_deform_conv2d_bf16(const void* x, const float* off,
+                                       const void* w, float* out,
+                                       void* scratch, int b, int c, int h,
+                                       int wd, int g, int cout, int pad,
+                                       cudaStream_t stream) {
+  if (b <= 0 || c <= 0 || h <= 0 || wd <= 0 || g <= 0 || cout <= 0 ||
+      c % g != 0 || b > 65535 || (cout + kN - 1) / kN > 65535 ||
+      (long long)b * h * wd * c >= (1ll << 31) ||
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int cg = c / g;
+  const int hw = h * wd;
+  const int ncb = (c + kCols - 1) / kCols;
+  const int x_total = b * g * hw;
+  const int w_total = (cout + kN - 1) / kN * kTaps * ncb * kWFragB;
+  uint2* wfrag = reinterpret_cast<uint2*>(scratch);
+  auto* xg = reinterpret_cast<__nv_bfloat16*>(wfrag + w_total);
+  const int ngc = g < (kCols - 1) / cg + 2 ? g : (kCols - 1) / cg + 2;
+  const size_t smem = smem_bytes_bf16(ngc);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  deform_prep_bf16_kernel<<<(x_total + w_total + 255) / 256, 256, 0,
+                            stream>>>(
+      reinterpret_cast<const __nv_bfloat16*>(x), xg,
+      reinterpret_cast<const __nv_bfloat16*>(w), wfrag, hw, cg, x_total, c,
+      cout, ncb, w_total);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const ArgsBf16 a{xg, off, wfrag, out, c, h, wd, g, cg, cout, pad, ngc};
+  const dim3 grid(((h + kTH - 1) / kTH) * ((wd + kTW - 1) / kTW), b,
+                  (cout + kN - 1) / kN);
+  const bool vec = wd % 4 == 0 && reinterpret_cast<uintptr_t>(off) % 16 == 0;
+  if (cg == 4) {
+    return vec ? launch_bf16<4, 4>(a, grid, smem, stream)
+               : launch_bf16<4, 1>(a, grid, smem, stream);
+  }
+  return vec ? launch_bf16<0, 4>(a, grid, smem, stream)
+             : launch_bf16<0, 1>(a, grid, smem, stream);
 }

@@ -174,9 +174,10 @@ class BevNet(nn.Module):
     def extract_features(self, images: torch.Tensor,
                          opts: LayerOpts = F32) -> torch.Tensor:
         """(B, S, S, 3) RGB in [0, 255] (uint8 or float) -> (B, 32, S/4,
-        S/4) f32 backbone features."""
+        S/4) backbone features in the activation dtype (JAX's BEV keeps
+        them so, `bev.py:105`)."""
         x = ((images.float() / 255.0) * 2.0 - 1.0).permute(0, 3, 1, 2)
-        return self.backbone(x.contiguous(), opts).float()
+        return self.backbone(x.contiguous(), opts)
 
 
 def bev_forward_maps(net: BevNet, images: torch.Tensor,

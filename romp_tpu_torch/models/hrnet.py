@@ -27,8 +27,9 @@ BLOCKS_PER_BRANCH = 4
 
 class Branch(nn.ModuleList):
     """A chain of stride-1 BasicBlocks (`hrnet.py:32-40`). With
-    `opts.fuse_chains` it runs through the fused-chain kernel on the weights
-    that `pack()` packed."""
+    `opts.fuse_chains`, in eval mode, it runs through the fused-chain kernel
+    on the weights that `pack()` packed (bf16 in and out on the
+    bf16-activation path)."""
 
     def __init__(self, planes: int, blocks: int):
         super().__init__([BasicBlock(planes, planes) for _ in range(blocks)])
@@ -45,7 +46,9 @@ class Branch(nn.ModuleList):
                 pack_chain_weights(self.state_dict(), "", len(self)))
 
     def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
-        if opts.fuse_chains:
+        # inference only: in train mode the blocks run unfused, as the
+        # reference turns fuse_chains off in training (`layers.py:55`)
+        if opts.fuse_chains and not self.training:
             if self.packed_w is None:
                 raise RuntimeError("fuse_chains needs packed weights: call "
                                    "RompNet.pack_chains() after loading")

@@ -20,6 +20,20 @@ on the mixed path their output is rounded to bf16 before it is cast back to
 f32, and a bias is added afterwards in f32. `Conv1d` / `Conv3d` reproduce
 that: bf16-rounded operands, the f32 conv, the output rounded to bf16, then
 the bias.
+
+With act_dtype=bfloat16 (JAX's low-memory inference mode, `layers.py:
+118-133, 164-168, 188-192, 221-227, 241-247`) activations are bf16 between
+layers and each step keeps JAX's dtype:
+- Conv2d: a native bf16 conv (f32 sums, one rounding to bf16) on bf16
+  weights, then a bias in bf16 (a second rounding);
+- Conv1d / Conv3d: the bf16 conv; a bias is f32, so `y + bias` promotes
+  the output to f32, as in JAX;
+- BatchNorm: scale and shift folded in f32, cast to bf16, applied in bf16;
+- residual adds and ReLUs in the operands' dtype (bf16 + f32 promotes).
+The bf16 weights, biases and folded BN are cast once, by `cast_bf16(net)`
+after loading (a layer raises without them). JAX refuses a bf16 activation
+with f32 conv operands (`preferred_element_type` narrower than the input),
+and so does `LayerOpts`.
 """
 from __future__ import annotations
 
@@ -39,9 +53,61 @@ class LayerOpts:
 
     compute_dtype: torch.dtype = torch.float32   # conv operand dtype
     fuse_chains: bool = False    # HRNet branch chains through the kernel
+    act_dtype: torch.dtype = torch.float32       # activations between layers
+
+    def __post_init__(self):
+        if self.act_dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"act_dtype {self.act_dtype}")
+        if (self.act_dtype == torch.bfloat16
+                and self.compute_dtype != torch.bfloat16):
+            raise ValueError("act_dtype bfloat16 needs compute_dtype "
+                             "bfloat16 (JAX's conv refuses a bf16 result of "
+                             "f32 operands)")
+
+    @property
+    def bf16_act(self) -> bool:
+        return self.act_dtype == torch.bfloat16
 
 
 F32 = LayerOpts()
+
+
+def opts_from_names(compute_dtype: str, act_dtype: str = "float32",
+                    fuse_chains: bool = False) -> LayerOpts:
+    """LayerOpts from a pipeline config's dtype names."""
+    def dtype(name):
+        return torch.bfloat16 if name == "bfloat16" else torch.float32
+    return LayerOpts(compute_dtype=dtype(compute_dtype),
+                     fuse_chains=fuse_chains, act_dtype=dtype(act_dtype))
+
+
+class _Bf16Cast:
+    """The bf16 copies a layer reads on the bf16-activation path, made once
+    by `cast_bf16` and kept as non-persistent buffers (they follow
+    `.to(device)` and stay out of the state dict)."""
+
+    def _bf16(self, name: str) -> torch.Tensor:
+        t = getattr(self, f"{name}_bf16", None)
+        if t is None:
+            raise RuntimeError(
+                f"{type(self).__name__}: the bf16-activation path needs its "
+                "bf16 weights; call layers.cast_bf16(net) after loading")
+        return t
+
+    def _set_bf16(self, **tensors: torch.Tensor) -> None:
+        for name, t in tensors.items():
+            self.register_buffer(f"{name}_bf16", t, persistent=False)
+
+
+def cast_bf16(net: nn.Module) -> nn.Module:
+    """Cast every conv weight and bias, and every BatchNorm's folded scale
+    and shift, to bf16 once (after loading weights or calibrating BN), for
+    the bf16-activation path. Returns net."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, _Bf16Cast):
+                m.cast_bf16()
+    return net
 
 
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +115,7 @@ def bf16_round(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).float()
 
 
-class Conv2d(nn.Conv2d):
+class Conv2d(_Bf16Cast, nn.Conv2d):
     """nn.Conv2d with torch's explicit symmetric padding, (kernel - 1) // 2
     by default (`layers.py:102-108`), under the compute_dtype rule."""
 
@@ -60,18 +126,39 @@ class Conv2d(nn.Conv2d):
                          (kernel - 1) // 2 if padding is None else padding,
                          bias=bias)
 
+    def cast_bf16(self) -> None:
+        self._set_bf16(weight=self.weight.to(torch.bfloat16),
+                       bias=None if self.bias is None
+                       else self.bias.to(torch.bfloat16))
+
     def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
+        if opts.bf16_act:
+            y = F.conv2d(x.to(torch.bfloat16), self._bf16("weight"), None,
+                         self.stride, self.padding)
+            if self.bias is not None:
+                y = y + self._bf16("bias").view(-1, 1, 1)
+            return y
         w = self.weight
         if opts.compute_dtype == torch.bfloat16:
             x, w = bf16_round(x), bf16_round(w)
         return F.conv2d(x, w, self.bias, self.stride, self.padding)
 
 
-class _RoundedConv:
+class _RoundedConv(_Bf16Cast):
     """forward of Conv1d / Conv3d under the compute_dtype rule (see the
-    module docstring): on the mixed path the output is rounded to bf16."""
+    module docstring): on the mixed path the output is rounded to bf16;
+    on the bf16-activation path it is the bf16 conv's, and a bias (f32)
+    promotes it to f32."""
+
+    def cast_bf16(self) -> None:
+        self._set_bf16(weight=self.weight.to(torch.bfloat16))
 
     def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
+        if opts.bf16_act:
+            y = self._conv_forward(x.to(torch.bfloat16), self._bf16("weight"),
+                                   None)
+            return y if self.bias is None else y + self.bias.view(
+                -1, *(1,) * (y.dim() - 2))
         if opts.compute_dtype != torch.bfloat16:
             return self._conv_forward(x, self.weight, self.bias)
         y = bf16_round(self._conv_forward(bf16_round(x),
@@ -98,18 +185,53 @@ class Conv3d(_RoundedConv, nn.Conv3d):
                          bias=bias)
 
 
+class _FoldedBf16Norm(_Bf16Cast):
+    """forward of the BatchNorms: torch's on f32 input; on bf16 input (the
+    bf16-activation path, eval mode only) x * scale + shift in bf16, with
+    scale = weight / sqrt(var + eps) and shift = bias - mean * scale
+    folded in f32 and cast to bf16 by `cast_bf16` (`layers.py:163-168`)."""
+
+    def cast_bf16(self) -> None:
+        inv = torch.rsqrt(self.running_var + self.eps) * self.weight
+        self._set_bf16(scale=inv.to(torch.bfloat16),
+                       shift=(self.bias - self.running_mean * inv).to(
+                           torch.bfloat16))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        if self.training:
+            raise RuntimeError("bf16 activations are an inference mode: "
+                               "train-mode BatchNorm takes f32")
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        return (x * self._bf16("scale").view(shape)
+                + self._bf16("shift").view(shape))
+
+
+class BatchNorm1d(_FoldedBf16Norm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FoldedBf16Norm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FoldedBf16Norm, nn.BatchNorm3d):
+    pass
+
+
 def batch_norm(in_ch: int) -> nn.BatchNorm2d:
     """BatchNorm2d with the JAX package's eps; inference uses running stats
     (the port runs its network in eval mode)."""
-    return nn.BatchNorm2d(in_ch, eps=BN_EPS)
+    return BatchNorm2d(in_ch, eps=BN_EPS)
 
 
 def batch_norm1d(in_ch: int) -> nn.BatchNorm1d:
-    return nn.BatchNorm1d(in_ch, eps=BN_EPS)
+    return BatchNorm1d(in_ch, eps=BN_EPS)
 
 
 def batch_norm3d(in_ch: int) -> nn.BatchNorm3d:
-    return nn.BatchNorm3d(in_ch, eps=BN_EPS)
+    return BatchNorm3d(in_ch, eps=BN_EPS)
 
 
 class BasicBlock(nn.Module):
@@ -197,9 +319,9 @@ class BasicBlock1d(nn.Module):
 
 class BasicBlock3d(nn.Module):
     """BEV BasicBlock_3D over (B, C, D, H, W): conv-bn-relu-conv-bn plus the
-    residual, no final relu (`layers.py:308-331`). A plain Conv3d: the JAX
-    package's z-band recast (`_conv2d_zband`) is a TPU layout device that
-    computes the same function."""
+    residual cast to the activation dtype, no final relu (`layers.py:308-
+    331`). A plain Conv3d: the JAX package's z-band recast (`_conv2d_zband`)
+    is a TPU layout device that computes the same function."""
 
     def __init__(self, in_ch: int, planes: int):
         super().__init__()
@@ -210,7 +332,7 @@ class BasicBlock3d(nn.Module):
 
     def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
         out = torch.relu(self.bn1(self.conv1(x, opts)))
-        return self.bn2(self.conv2(out, opts)) + x
+        return self.bn2(self.conv2(out, opts)) + x.to(opts.act_dtype)
 
 
 def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:

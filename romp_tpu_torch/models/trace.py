@@ -26,6 +26,7 @@ from romp_tpu_torch.models.bev import (
 from romp_tpu_torch.models.hrnet import hrnet32
 from romp_tpu_torch.models.layers import (
     F32, BasicBlock, BasicBlock3d, BasicBlockConvDs, Conv2d, LayerOpts,
+    _Bf16Cast,
 )
 from romp_tpu_torch.ops.deform_conv import deform_conv2d
 
@@ -121,19 +122,32 @@ class TemporalEncoder(nn.Module):
             [nn.Linear(hidden, s) for s in out_sizes])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.regressor(x)
+        # bf16 features promote to f32 against the f32 weights, as JAX's
+        # `x @ w.T + b` does
+        y = self.regressor(x.float())
         return torch.cat([layer(y) for layer in self.out_layers], dim=-1)
 
 
-class DeformWarp(nn.Module):
-    """Holds `deform_warper.weight` (Cout, C, 3, 3); 8 deform groups."""
+class DeformWarp(_Bf16Cast, nn.Module):
+    """Holds `deform_warper.weight` (Cout, C, 3, 3); 8 deform groups. The
+    warp runs in the activation dtype (`trace.py:198-201`): f32 features
+    and weight, or bf16 ones (the weight cast once by `cast_bf16`), with
+    f32 offsets; the result is f32 either way."""
 
     def __init__(self, ch: int = BACKBONE_CH):
         super().__init__()
         self.weight = nn.Parameter(torch.zeros(ch, ch, 3, 3))
 
-    def forward(self, x: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-        return deform_conv2d(x.contiguous(), offsets.float().contiguous(),
+    def cast_bf16(self) -> None:
+        self._set_bf16(weight=self.weight.to(torch.bfloat16).contiguous())
+
+    def forward(self, x: torch.Tensor, offsets: torch.Tensor,
+                opts: LayerOpts = F32) -> torch.Tensor:
+        offsets = offsets.float().contiguous()
+        if opts.bf16_act:
+            return deform_conv2d(x.to(torch.bfloat16).contiguous(), offsets,
+                                 self._bf16("weight"), DEFORM_GROUPS)
+        return deform_conv2d(x.float().contiguous(), offsets,
                              self.weight.float().contiguous(), DEFORM_GROUPS)
 
 
@@ -212,9 +226,10 @@ def extract_temporal_features(net: TraceNet, feats: torch.Tensor,
     for block in net.offset_feature_convert:
         mo = block(mo, opts)
     offsets = net.feature_offset_predictor(mo, opts)
-    # the warp runs in the activation dtype, f32 (the port keeps f32
-    # activations): offsets and weight stay f32 on the mixed path too
-    warped = net.deform_warper(feats[1:], offsets)
+    # the warp runs in the activation dtype: f32 on the f32 and mixed
+    # paths, bf16 features and weight on the bf16-activation path; the
+    # offsets stay f32
+    warped = net.deform_warper(feats[1:], offsets, opts)
     return temp_feats + warped + feats[1:], hidden
 
 

@@ -23,6 +23,8 @@ import tempfile
 from pathlib import Path
 from typing import List, Optional, Tuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "romp_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,7 +40,9 @@ SIGNATURES = {
     "romp_skinning_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "romp_conv3x3_bn_act": [_P] * 8 + [_I] * 8 + [_P],
     "romp_basic_chain": [_P] * 9 + [_I] * 9 + [_P],
+    "romp_basic_chain_bf16": [_P] * 10 + [_I] * 9 + [_P],
     "romp_deform_conv2d_f32": [_P] * 5 + [_I] * 7 + [_P],
+    "romp_deform_conv2d_bf16": [_P] * 5 + [_I] * 7 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -185,6 +189,18 @@ def check_operand(what: str, name: str, t, dtype, shape, device) -> None:
                          f"needs {dtype} {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: {name} is not contiguous")
+
+
+def check_no_grad(what: str, *tensors) -> None:
+    """Raise under grad mode if an operand requires grad: the CUDA kernels
+    are forward only, and their outputs (filled through a raw pointer)
+    would carry no graph."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{what}: the CUDA kernel has no backward; run it under "
+            "torch.no_grad() or inference_mode, or on operands that do not "
+            "require grad")
 
 
 def check(err: int, what: str) -> None:

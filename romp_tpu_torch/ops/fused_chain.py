@@ -16,6 +16,17 @@ each pass writes the bf16 NHWC operand of the next (conv1's output h only
 so; each block output y also in f32 NCHW, the next block's residual). The
 packed weights keep the TPU kernel's layout, w[n, j, dy*C + ci, dx*C + co],
 so they compare with `pallas_fuse.pack_chain_weights` bit for bit.
+
+bf16 in and out (the bf16-activation path): the TPU kernel widens a bf16
+input to f32, runs the chain in f32 and rounds its result to bf16
+(`pallas_fuse.py:145-146, 174`). `basic_chain` on a bf16 x launches the
+kernel's bf16 variant, which reads x as it is (its conversion reads bf16
+NCHW; block 0's residual is x, widened exactly) and whose last pass writes
+bf16 NCHW; `basic_chain_plain` has the same dtype contract.
+
+Forward only: under grad mode with an operand that requires grad the
+kernel wrappers raise, where the plain twins (the CPU's) would carry the
+graph (the training slice brings the backward).
 """
 from __future__ import annotations
 
@@ -76,12 +87,13 @@ def conv_pass_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 def basic_chain_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                       shift: torch.Tensor, blocks: int) -> torch.Tensor:
     """Plain PyTorch chain (twin of `reference_basic_chain`): x (B, C, H, W)
-    f32 -> same shape."""
+    f32 or bf16 -> same shape and dtype; a bf16 x is widened to f32 and the
+    f32 result rounded to bf16 at the end."""
     y = x.float()
     for n in range(blocks):
         h = conv_pass_plain(y, w[n, 0], scale[n, 0], shift[n, 0])
         y = conv_pass_plain(h, w[n, 1], scale[n, 1], shift[n, 1], residual=y)
-    return y
+    return y.to(x.dtype)
 
 
 # The kernel's fixed shape (basic_chain.cu): output tiles of tile_h x 8
@@ -142,10 +154,12 @@ def launch_plan(B: int, C: int, H: int, W: int) -> ChainPlan:
     return best
 
 
-def _check_operands(x, w, scale, shift, lead=()) -> None:
+def _check_operands(x, w, scale, shift, lead=(), x_dtype=torch.float32
+                    ) -> None:
     """Raise unless the operands are what the kernel reads: x (B, C, H, W)
-    f32 on a CUDA device with C a multiple of 8, w (*lead, 3C, 3C) bf16,
-    scale and shift (*lead, C) f32, all on x's device and contiguous."""
+    of x_dtype on a CUDA device with C a multiple of 8, w (*lead, 3C, 3C)
+    bf16, scale and shift (*lead, C) f32, all on x's device and contiguous,
+    none requiring grad under grad mode."""
     if x.dim() != 4 or x.device.type != "cuda":
         raise ValueError(f"basic_chain: x must be a (B, C, H, W) CUDA "
                          f"tensor, got {tuple(x.shape)} on {x.device}")
@@ -153,8 +167,9 @@ def _check_operands(x, w, scale, shift, lead=()) -> None:
     if C % 8:
         raise ValueError(f"basic_chain: C={C}; the kernel takes channel "
                          f"counts that are multiples of 8")
+    _build.check_no_grad("basic_chain", x, w, scale, shift)
     for name, t, dtype, shape in (
-            ("x", x, torch.float32, x.shape),
+            ("x", x, x_dtype, x.shape),
             ("w", w, torch.bfloat16, (*lead, 3 * C, 3 * C)),
             ("scale", scale, torch.float32, (*lead, C)),
             ("shift", shift, torch.float32, (*lead, C))):
@@ -199,6 +214,7 @@ def conv_pass(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if x.device.type == "cpu":
         return conv_pass_plain(x, w, scale, shift, residual)
     _check_operands(x, w, scale, shift)
+    _build.check_no_grad("conv_pass", residual)
     if residual is not None:
         _build.check_operand("basic_chain", "residual", residual,
                              torch.float32, x.shape, x.device)
@@ -220,12 +236,16 @@ def conv_pass(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 def basic_chain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                 shift: torch.Tensor, blocks: int) -> torch.Tensor:
-    """Run `blocks` BasicBlocks over x (B, C, H, W) f32: the CUDA kernel
-    (two launches a block, from one host call) for CUDA tensors,
-    `basic_chain_plain` for CPU tensors. Bit-equal to the same passes
-    through `conv_pass`."""
+    """Run `blocks` BasicBlocks over x (B, C, H, W) f32 or bf16 (the result
+    in x's dtype): the CUDA kernel (two launches a block, from one host
+    call) for CUDA tensors, `basic_chain_plain` for CPU tensors. f32:
+    bit-equal to the same passes through `conv_pass`; bf16: the kernel's
+    bf16 variant, bit-equal to the f32 chain on x.float(), rounded to bf16.
+    Another dtype raises."""
     if x.device.type == "cpu":
         return basic_chain_plain(x, w, scale, shift, blocks)
+    if x.dtype == torch.bfloat16:
+        return _basic_chain_bf16(x, w, scale, shift, blocks)
     _check_operands(x, w, scale, shift, lead=(blocks, 2))
     if blocks == 0:
         return x
@@ -249,4 +269,33 @@ def basic_chain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+def _basic_chain_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor, blocks: int) -> torch.Tensor:
+    """basic_chain's bf16 variant (CUDA tensors): `romp_basic_chain_bf16`.
+    Counts its conv launches in `basic_chain.bf16_launches` as well as in
+    `conv_pass.launches`."""
+    _check_operands(x, w, scale, shift, lead=(blocks, 2),
+                    x_dtype=torch.bfloat16)
+    if blocks == 0:
+        return x
+    out = torch.empty_like(x)
+    if x.numel() == 0:
+        return out
+    plan = launch_plan(*x.shape)
+    # bf16 NHWC operands of conv1 and conv2, and the two f32 buffers the
+    # inner blocks' outputs alternate in
+    _owner, (xb, h, y0, y1), partial = _scratch(x, plan, 2, 2)
+    with torch.cuda.device(x.device):
+        err = _build.load().romp_basic_chain_bf16(
+            x.data_ptr(), xb, h, y0, y1, out.data_ptr(), partial,
+            w.data_ptr(), scale.data_ptr(), shift.data_ptr(), blocks,
+            *x.shape, plan.tile_h, plan.tile_n, plan.ksplit, plan.smem,
+            _stream(x))
+    _build.check(err, "romp_basic_chain_bf16")
+    conv_pass.launches += 2 * blocks
+    basic_chain.bf16_launches += 2 * blocks
+    return out
+
+
 conv_pass.launches = 0
+basic_chain.bf16_launches = 0

@@ -113,6 +113,8 @@ def skinning(a16: torch.Tensor, weights: torch.Tensor,
              v_posed: torch.Tensor) -> torch.Tensor:
     """Skinning: the CUDA kernel for CUDA tensors, `skinning_plain` for CPU
     tensors. a16: (B, 16, 24); weights: (V, 24); v_posed: (B, 3, V), f32.
+    The kernel is forward only: it raises under grad mode when an operand
+    requires grad.
 
     `skinning.launches` counts kernel launches.
     """
@@ -121,6 +123,7 @@ def skinning(a16: torch.Tensor, weights: torch.Tensor,
     if a16.dim() != 3 or a16.device.type != "cuda":
         raise ValueError(f"skinning: a16 must be a (B, 16, 24) CUDA tensor, "
                          f"got {tuple(a16.shape)} on {a16.device}")
+    _build.check_no_grad("skinning", a16, weights, v_posed)
     B, V = a16.shape[0], weights.shape[0]
     for name, t, shape in (("a16", a16, (B, 16, 24)),
                            ("weights", weights, (V, 24)),

@@ -18,7 +18,7 @@ import torch
 from romp_tpu_torch.models.bev import (
     BV_ROW_CH, BevNet, bev_forward_maps, bev_regress_params,
 )
-from romp_tpu_torch.models.layers import LayerOpts
+from romp_tpu_torch.models.layers import LayerOpts, cast_bf16, opts_from_names
 from romp_tpu_torch.models.romp import BACKBONES
 from romp_tpu_torch.ops.centermap import parse_centermap3d
 from romp_tpu_torch.ops.projection import perspective_projection
@@ -41,7 +41,7 @@ class BevConfig:
     relative_scale_thresh: float = 3.0
     outlier_scale_thresh: float = 0.25
     compute_dtype: str = "float32"   # conv operand dtype; "bfloat16" = mixed
-    act_dtype: str = "float32"
+    act_dtype: str = "float32"       # "bfloat16" = low-memory inference
     calc_smpl: bool = True
     transfer_dtype: str = "float32"  # dtype of verts / joints / pj2d
     fuse_chains: bool = False        # HRNet chains through the CUDA kernel
@@ -52,19 +52,17 @@ class BevConfig:
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.transfer_dtype not in ("float32", "float16"):
             raise ValueError(f"transfer_dtype {self.transfer_dtype!r}")
-        if self.act_dtype != "float32":
-            raise NotImplementedError(
-                f"act_dtype={self.act_dtype!r}: the port keeps activations "
-                "in float32 so far (bf16 activations are on the ROADMAP)")
+        if self.act_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"act_dtype {self.act_dtype!r}")
+        self.opts     # JAX refuses bf16 activations of f32 conv operands
         if self.backbone not in BACKBONES:
             raise NotImplementedError(
                 f"backbone={self.backbone!r}: the port has {BACKBONES}")
 
     @property
     def opts(self) -> LayerOpts:
-        return LayerOpts(compute_dtype=(
-            torch.bfloat16 if self.compute_dtype == "bfloat16"
-            else torch.float32), fuse_chains=self.fuse_chains)
+        return opts_from_names(self.compute_dtype, self.act_dtype,
+                               self.fuse_chains)
 
 
 def unpack_bev_params(params_pred: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -87,7 +85,9 @@ def bev_cam_to_trans(cam: torch.Tensor) -> torch.Tensor:
     """(s, ty, tx) -> camera-space (X, Y, depth), x and y swapped
     (`bev_pipeline.py:73`)."""
     depth = scale_to_depth(cam[..., 0])
-    xy = cam[..., [2, 1]] * depth[..., None] * TAN_FOV_HALF
+    # not cam[..., [2, 1]]: a list index is uploaded, a host sync
+    xy = torch.stack([cam[..., 2], cam[..., 1]], dim=-1) * depth[
+        ..., None] * TAN_FOV_HALF
     return torch.cat([xy, depth[..., None]], dim=-1)
 
 
@@ -212,6 +212,8 @@ class BevPipeline:
         self.net = net.to(self.device).eval().requires_grad_(False)
         if self.cfg.fuse_chains:
             self.net.pack_chains()
+        if self.cfg.act_dtype == "bfloat16":
+            cast_bf16(self.net)    # bf16 weights and folded BN, once
         self.smpl_adult = smpl_adult.to(self.device)
         self.smpl_baby = smpl_baby.to(self.device)
 

@@ -14,7 +14,7 @@ from typing import Dict, Mapping, Optional
 import numpy as np
 import torch
 
-from romp_tpu_torch.models.layers import LayerOpts
+from romp_tpu_torch.models.layers import LayerOpts, cast_bf16, opts_from_names
 from romp_tpu_torch.models.romp import BACKBONES, RompNet
 from romp_tpu_torch.ops.centermap import parse_centermap2d, sample_maps_at
 from romp_tpu_torch.ops.projection import (
@@ -35,7 +35,8 @@ class RompConfig:
     cam_scale_base: float = 1.1
     root_align: bool = False
     compute_dtype: str = "float32"   # conv operand dtype; "bfloat16" = mixed
-    act_dtype: str = "float32"       # inter-layer activation dtype
+    act_dtype: str = "float32"       # inter-layer activation dtype;
+    #                                  "bfloat16" = low-memory inference
     calc_smpl: bool = True
     backbone: str = "hrnet32"
     transfer_dtype: str = "float32"  # dtype of the per-vertex outputs
@@ -47,14 +48,18 @@ class RompConfig:
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.transfer_dtype not in ("float32", "float16"):
             raise ValueError(f"transfer_dtype {self.transfer_dtype!r}")
-        if self.act_dtype != "float32":
-            raise NotImplementedError(
-                f"act_dtype={self.act_dtype!r}: the port keeps activations "
-                "in float32 so far (bf16 activations are on the ROADMAP)")
+        if self.act_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"act_dtype {self.act_dtype!r}")
+        self.opts     # JAX refuses bf16 activations of f32 conv operands
         if self.backbone not in BACKBONES:
             raise NotImplementedError(
                 f"backbone={self.backbone!r}: the port has {BACKBONES} so far "
                 "(resnet50 is on the ROADMAP)")
+
+    @property
+    def opts(self) -> LayerOpts:
+        return opts_from_names(self.compute_dtype, self.act_dtype,
+                               self.fuse_chains)
 
 
 @contextlib.contextmanager
@@ -99,11 +104,10 @@ def romp_inference(net: RompNet, smpl: SmplModel, images: torch.Tensor,
     joints, pj2d, verts_camed, cam_trans. Call under `precision_flags(cfg)`
     (RompPipeline does).
     """
-    opts = LayerOpts(
-        compute_dtype=(torch.bfloat16 if cfg.compute_dtype == "bfloat16"
-                       else torch.float32),
-        fuse_chains=cfg.fuse_chains)
-    center_maps, params_maps = net(images, opts)
+    center_maps, params_maps = net(images, cfg.opts)
+    # bf16 activations: the head maps are widened before parsing, as JAX
+    # does (`romp_pipeline.py:98-99`)
+    center_maps, params_maps = center_maps.float(), params_maps.float()
 
     det = parse_centermap2d(center_maps[..., 0], cfg.max_person,
                             cfg.conf_thresh)
@@ -196,6 +200,8 @@ class RompPipeline:
         self.net = net.to(self.device).eval().requires_grad_(False)
         if self.cfg.fuse_chains:
             self.net.pack_chains()
+        if self.cfg.act_dtype == "bfloat16":
+            cast_bf16(self.net)    # bf16 weights and folded BN, once
         self.smpl = smpl.to(self.device)
 
     def __call__(self, images) -> Dict[str, torch.Tensor]:

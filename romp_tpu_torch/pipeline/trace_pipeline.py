@@ -34,7 +34,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from romp_tpu_torch.models.layers import LayerOpts
+from romp_tpu_torch.models.layers import LayerOpts, cast_bf16, opts_from_names
 from romp_tpu_torch.models.trace import (
     BV_ROW_CH, HC, TraceMaps, TraceNet, trace_forward_maps,
     trace_regress_trajectory, trace_regress_trans,
@@ -66,7 +66,7 @@ class TraceConfig:
     max_tracks: int = 16
     conf_thresh: float = 0.05
     compute_dtype: str = "float32"   # conv operand dtype; "bfloat16" = mixed
-    act_dtype: str = "float32"
+    act_dtype: str = "float32"       # "bfloat16" = low-memory inference
     transfer_dtype: str = "float32"  # dtype of verts / joints / pj2d
     backbone: Optional[str] = "hrnet32"
 
@@ -75,16 +75,13 @@ class TraceConfig:
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
         if self.transfer_dtype not in ("float32", "float16"):
             raise ValueError(f"transfer_dtype {self.transfer_dtype!r}")
-        if self.act_dtype != "float32":
-            raise NotImplementedError(
-                f"act_dtype={self.act_dtype!r}: the port keeps activations "
-                "in float32 so far (bf16 activations are on the ROADMAP)")
+        if self.act_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"act_dtype {self.act_dtype!r}")
+        self.opts     # JAX refuses bf16 activations of f32 conv operands
 
     @property
     def opts(self) -> LayerOpts:
-        return LayerOpts(compute_dtype=(
-            torch.bfloat16 if self.compute_dtype == "bfloat16"
-            else torch.float32))
+        return opts_from_names(self.compute_dtype, self.act_dtype)
 
 
 def trace_extract_features(net: TraceNet, frames: torch.Tensor,
@@ -151,7 +148,9 @@ def gather_trajectories(maps: TraceMaps, czyxs: torch.Tensor) -> torch.Tensor:
     yx_flat = (czyxs[..., 1] * H + czyxs[..., 2]).T            # (T, N)
     feat = _sample2d(maps.mesh_feature_maps, yx_flat)          # (T, N, C)
     cams = _sample3d(maps.cam_maps_3d, czyxs.transpose(0, 1))  # (T, N, 3)
-    return torch.cat([feat, cams], dim=-1).transpose(0, 1)
+    # widened for the host (bf16 maps on the bf16-activation path): the
+    # memory gate runs in f32 numpy, where JAX's host arrays stay bf16
+    return torch.cat([feat, cams], dim=-1).transpose(0, 1).float()
 
 
 def trace_regress(net: TraceNet, traj_pack: torch.Tensor,
@@ -254,6 +253,8 @@ class TracePipeline:
         net = TraceNet(self.cfg.backbone, map_size)
         net.load_state_dict(params, strict=True)
         self.net = net.to(self.device).eval().requires_grad_(False)
+        if self.cfg.act_dtype == "bfloat16":
+            cast_bf16(self.net)    # bf16 weights and folded BN, once
         self.smpl_adult = smpl_adult.to(self.device)
         self.smpl_baby = smpl_baby.to(self.device)
         self.profile = False      # fills stage_times per clip when True

@@ -45,6 +45,12 @@ class SmplModel(nn.Module):
         buf("J_regressor_h36m17", assets.J_regressor_h36m17)     # (17, V)
         buf("faces", assets.faces, torch.int32)                  # (F, 3)
         self.parents = tuple(int(p) for p in np.asarray(assets.parents))
+        # the non-root joints' parents as an index on the model's device:
+        # indexing a CUDA tensor with a Python list uploads the list, a host
+        # sync on every call
+        self.register_buffer("parent_index", torch.tensor(
+            self.parents[1:], dtype=torch.long, device=device),
+            persistent=False)
 
     @property
     def num_joints(self) -> int:
@@ -52,17 +58,18 @@ class SmplModel(nn.Module):
 
 
 def _rigid_chain(rot_mats: torch.Tensor, joints: torch.Tensor,
-                 parents: Tuple[int, ...]
+                 parents: Tuple[int, ...], parent_index: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Compose per-joint local transforms along the kinematic tree
     (24 unrolled 4x4 products, `body_model.py:84-110`).
 
-    rot_mats: (B, J, 3, 3); joints: (B, J, 3) rest-pose joints. Returns the
-    posed joints (B, J, 3) and rest-pose-compensated transforms A (B, J, 4, 4).
+    rot_mats: (B, J, 3, 3); joints: (B, J, 3) rest-pose joints; parents and
+    parent_index (parents[1:] on the device) the tree. Returns the posed
+    joints (B, J, 3) and rest-pose-compensated transforms A (B, J, 4, 4).
     """
     B, J = joints.shape[:2]
     rel = joints.clone()
-    rel[:, 1:] -= joints[:, list(parents[1:])]
+    rel[:, 1:] -= joints[:, parent_index]
     T = torch.zeros((B, J, 4, 4), dtype=rot_mats.dtype, device=rot_mats.device)
     T[:, :, :3, :3] = rot_mats
     T[:, :, :3, 3] = rel
@@ -102,7 +109,8 @@ def smpl_forward(model: SmplModel, betas: torch.Tensor, pose: torch.Tensor,
     v_posed_T = (v_shaped_flat + pose_feature @ model.posedirs
                  ).reshape(B, V, 3).transpose(1, 2).contiguous()  # (B, 3, V)
 
-    posed_joints, A = _rigid_chain(rot_mats, joints_rest, model.parents)
+    posed_joints, A = _rigid_chain(rot_mats, joints_rest, model.parents,
+                                   model.parent_index)
 
     A16 = A.reshape(B, J, 16).transpose(1, 2).contiguous()        # (B, 16, J)
     verts_T = skinning(A16, model.lbs_weights, v_posed_T)         # (B, 3, V)

@@ -2,6 +2,7 @@
 video path on one GPU (counterpart of `romp_tpu/utils/profiling.py`).
 
     python -m romp_tpu_torch.utils.profiling [--path romp|bev|trace|all]
+        [--act_dtype float32|bfloat16] [--romp_batches 1 64]
         [--out profile.txt]
 
 Full width (HRNet-W32, 512x512, V = 6890) with seeded random weights
@@ -13,7 +14,9 @@ batch 1 and 64, through `RompPipeline`. BEV: `BevPipeline`, mixed path,
 call being a stream of four 8-frame clips through `process_stream`: with
 zero flow, mixed path and f32, and with RAFT's flow (seeded RAFT weights,
 the CLI's defaults: 512x512, 20 iterations, bf16, sequence form), mixed.
-Each runs under `torch.profiler` (CPU + CUDA activities) after warm-up
+`--act_dtype bfloat16` runs every configuration with bf16 activations
+instead (TRACE's f32 one is then left out: JAX refuses bf16 activations
+of f32 convs). Each runs under `torch.profiler` (CPU + CUDA activities) after warm-up
 calls and prints, per configuration:
 - wall ms per call: host clock around the profiled calls, ended by
   `torch.cuda.synchronize()`;
@@ -53,7 +56,8 @@ from romp_tpu_torch.smpl.body_model import SmplModel, synthetic_assets
 # kind of kernel -> substrings of its name; the first match wins
 KINDS = (
     ("skinning kernel", ("skinning_tf32_kernel",)),
-    ("deform kernel", ("deform_conv_tf32_kernel", "deform_prep_kernel")),
+    ("deform kernel", ("deform_conv_tf32_kernel", "deform_prep_kernel",
+                       "deform_conv_bf16_kernel", "deform_prep_bf16_kernel")),
     ("chain kernel", ("conv3x3_bn_act_mma_kernel", "ksplit_reduce_kernel",
                       "nchw_to_nhwc_bf16_kernel")),
     ("batch norm", ("bn_fw", "batch_norm")),
@@ -145,6 +149,7 @@ def profile_config(pipe, batch: int, calls: int,
               * 255).astype(np.uint8)
     row, table = device_profile(lambda: pipe(images), calls, warmup)
     return dict(compute_dtype=pipe.cfg.compute_dtype,
+                act_dtype=pipe.cfg.act_dtype,
                 fuse_chains=pipe.cfg.fuse_chains, batch=batch,
                 **row), table
 
@@ -161,7 +166,8 @@ def profile_trace(pipe: TracePipeline, calls: int = 2, clips: int = 4,
         list(pipe.process_stream(pipe.prefetch(f) for f in frames))
 
     row, table = device_profile(stream, calls, warmup)
-    return dict(compute_dtype=pipe.cfg.compute_dtype, clips_per_call=clips,
+    return dict(compute_dtype=pipe.cfg.compute_dtype,
+                act_dtype=pipe.cfg.act_dtype, clips_per_call=clips,
                 **row), table
 
 
@@ -203,6 +209,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("romp", "bev", "trace", "all"),
                     default="all")
+    ap.add_argument("--act_dtype", choices=("float32", "bfloat16"),
+                    default="float32")
+    ap.add_argument("--romp_batches", type=int, nargs="+", default=[1, 64])
     ap.add_argument("--out", default=None,
                     help="write the profiler's op tables to this file")
     args = ap.parse_args(argv)
@@ -210,21 +219,25 @@ def main(argv=None) -> None:
         raise SystemExit("profiling: no CUDA device; this profiles the GPU")
     dev = torch.device("cuda", 0)
     tables = []
+    act = args.act_dtype
     if args.path in ("romp", "all"):
         params, assets = seeded_params(), synthetic_assets(seed=0)
         for fuse in (False, True):
-            cfg = RompConfig(compute_dtype="bfloat16", fuse_chains=fuse)
+            cfg = RompConfig(compute_dtype="bfloat16", act_dtype=act,
+                             fuse_chains=fuse)
             pipe = RompPipeline(params, SmplModel(assets), cfg, dev)
-            for batch, calls in ((1, 10), (64, 3)):
+            for batch in args.romp_batches:
+                calls = 10 if batch <= 8 else 3
                 row, table = profile_config(pipe, batch, calls)
-                print(json.dumps(row), flush=True)
+                print(json.dumps(dict(path="romp", **row)), flush=True)
                 tables.append(f"== fuse_chains={fuse} batch={batch}\n{table}")
     adult = SmplModel(synthetic_assets(seed=0, num_betas=11))
     baby = SmplModel(synthetic_assets(seed=1, num_betas=10))
     if args.path in ("bev", "all"):
         params = seeded_bev_params(device=dev)
         for fuse in (False, True):
-            cfg = BevConfig(compute_dtype="bfloat16", fuse_chains=fuse)
+            cfg = BevConfig(compute_dtype="bfloat16", act_dtype=act,
+                            fuse_chains=fuse)
             pipe = BevPipeline(params, adult, baby, cfg, dev)
             for batch, calls in ((1, 10), (16, 3)):
                 row, table = profile_config(pipe, batch, calls)
@@ -235,8 +248,10 @@ def main(argv=None) -> None:
         params = seeded_trace_params(device=dev)
         for dtype, raft in (("bfloat16", False), ("float32", False),
                             ("bfloat16", True)):
+            if dtype == "float32" and act == "bfloat16":
+                continue
             cfg = TraceConfig(max_person=64, conf_thresh=0.1,
-                              compute_dtype=dtype)
+                              compute_dtype=dtype, act_dtype=act)
             pipe = TracePipeline(
                 params, adult, baby, cfg, device=dev,
                 flow_fn=seeded_raft_flow_fn(device=dev) if raft else None)

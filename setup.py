@@ -29,6 +29,7 @@ setup(
             "bev.prepare_smil=romp_tpu.tools.prepare_smil:main",
             "romp.convert_checkpoint=romp_tpu.tools.convert_checkpoint:main",
             "romp.serve=romp_tpu.serve:main",
+            "romp_torch.serve=romp_tpu_torch.serve:main",
         ],
     },
 )

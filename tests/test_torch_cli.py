@@ -134,8 +134,9 @@ def test_gpu_flag_never_falls_back_to_cpu():
 
 def test_port_runs_without_jax():
     """With `import jax` and `import romp_tpu` made to fail, every module of
-    the port imports, and the tiny ROMP slice, the tiny TRACE slice with
-    RAFT's flow and the tiny BEV slice run on the CPU."""
+    the port imports (`romp_tpu_torch.serve` among them), and the tiny ROMP
+    slice (directly and behind the port's server), the tiny TRACE slice
+    with RAFT's flow and the tiny BEV slice run on the CPU."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
@@ -170,6 +171,16 @@ def test_port_runs_without_jax():
         out = pipe(np.zeros((1, 64, 64, 3), np.uint8))
         assert out["verts"].shape == (1, 4, 6890, 3), out["verts"].shape
         assert all(torch.isfinite(v.float()).all() for v in out.values())
+        from romp_tpu_torch.serve import (
+            InferenceClient, InferenceServer, make_romp_service)
+        srv = InferenceServer(make_romp_service(
+            params, SmplModel(synthetic_assets(seed=0)), cfg, max_batch=2,
+            device="cpu"))
+        client = InferenceClient(port=srv.port)
+        served = client.infer(np.zeros((40, 64, 3), np.uint8))
+        client.close()
+        srv.close()
+        assert served["verts"].shape == (4, 6890, 3), served["verts"].shape
 
         tcfg = TraceConfig(input_size=64, temp_clip_length=2, max_person=4,
                            conf_thresh=-1e9, backbone="hrnet32_tiny",
@@ -215,8 +226,8 @@ def test_port_runs_without_jax():
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
-    """No line of the port, nor of chip_smoke.py, imports `romp_tpu` or
-    `jax` (docstrings may name them)."""
+    """No line of the port (its server included), nor of chip_smoke.py,
+    imports `romp_tpu` or `jax` (docstrings may name them)."""
     pattern = re.compile(r"^\s*(from|import)\s+(romp_tpu|jax)(\.|\s|$)")
     files = [osp.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(osp.join(REPO, "romp_tpu_torch")):
@@ -228,4 +239,5 @@ def test_port_sources_import_nothing_of_the_jax_package():
                 if pattern.match(line):
                     offenders.append(f"{osp.relpath(path, REPO)}:{i}: "
                                      f"{line.strip()}")
+    assert osp.join(REPO, "romp_tpu_torch", "serve.py") in files
     assert len(files) > 20 and not offenders, offenders

@@ -150,3 +150,37 @@ def test_deform_buffers(C, G):
     frags = -(-Cout // 32) * 9 * -(-C // 32) * 4 * 4 * 32 * 4
     assert scratch_floats(B, C, H, W, Cout) == frags + B * C * H * W
     assert frags % 4 == 0       # x's regrouped copy starts 16-byte aligned
+
+
+@pytest.mark.parametrize("B,C,H,W,G,Cout", [(2, 16, 8, 8, 4, 12),
+                                            (2, 32, 12, 10, 8, 16)])
+def test_plain_bf16_matches_jax(B, C, H, W, G, Cout):
+    """bf16 x and weight, f32 offsets (TRACE's bf16-activation path,
+    `romp_tpu/models/trace.py:198-201`): the plain twin rounds where JAX's
+    `deform_conv2d` does (the fractions and 1 - f, the row blend, the
+    column blend, to bf16; the weight product in f32), so the two agree to
+    f32 summation order: 1e-5 of max|ref| (measured 1.3e-7 and 2.6e-7),
+    where JAX's own bf16 and f32 results are over 1e-3 apart. f32 out."""
+    x, off, w = _inputs(B * H + W + 1, B, C, H, W, G, Cout, 1.5)
+    xb = torch.from_numpy(x).bfloat16()
+    wb = torch.from_numpy(w).bfloat16()
+    jx = jnp.asarray(xb.float().numpy().transpose(0, 2, 3, 1)).astype(
+        jnp.bfloat16)
+    jw = jnp.asarray(wb.float().numpy().transpose(2, 3, 1, 0)).astype(
+        jnp.bfloat16)
+    joff = jnp.asarray(off.transpose(0, 2, 3, 1))
+    ref = np.asarray(jax_deform(jx, joff, jw, deform_groups=G)).transpose(
+        0, 3, 1, 2)
+    f32 = np.asarray(jax_deform(*_jax_layout(x, off, w), deform_groups=G)
+                     ).transpose(0, 3, 1, 2)
+    out = deform_conv2d(xb, torch.from_numpy(off), wb, deform_groups=G)
+    assert out.dtype == torch.float32 and ref.dtype == np.float32
+    assert _rel(out.numpy(), ref) <= 1e-5
+    assert _rel(f32, ref) > 1e-3          # the bf16 rounding really happens
+
+
+def test_plain_bf16_needs_bf16_weight():
+    x, off, w = _inputs(0, 1, 8, 5, 5, 2, 4, 1.0)
+    with pytest.raises(ValueError, match="bf16 weight"):
+        deform_conv2d_plain(torch.from_numpy(x).bfloat16(),
+                            torch.from_numpy(off), torch.from_numpy(w), 2)

@@ -13,7 +13,7 @@ from romp_tpu.models.layers import ParamStore
 from romp_tpu.ops.pallas_fuse import (
     pack_chain_weights as jax_pack, reference_basic_chain,
 )
-from romp_tpu_torch.models.hrnet import HRModule
+from romp_tpu_torch.models.hrnet import Branch, HRModule
 from romp_tpu_torch.models.layers import LayerOpts
 from romp_tpu_torch.ops.fused_chain import (
     CHUNK, MIN_CTAS, SMEM_LIMIT, TILE_W, TILES, basic_chain,
@@ -169,3 +169,55 @@ def _check_plan(B, C, H, W):
                          * -(-C // plan.tile_n) * plan.ksplit)
     assert plan.tile_n == 32 or C % plan.tile_n == 0
 
+
+
+@pytest.mark.parametrize("C,H,blocks", [(32, 32, 2), (64, 16, 1)])
+def test_basic_chain_plain_bf16_matches_reference(C, H, blocks):
+    """bf16 in and out (the bf16-activation path): the JAX chain widens its
+    bf16 input to f32 and rounds its result to bf16 (`pallas_fuse.py:
+    145-146, 174`); `reference_basic_chain` on the bf16 input is its XLA
+    twin. The plain chain (the kernel's CPU twin) keeps that contract: a
+    bf16 result, within the f32 chain's bar (2e-3) plus one bf16 step of
+    max|ref| (2^-8) for the final rounding, and bit-equal to the f32 chain
+    on the widened input, rounded."""
+    rng = np.random.RandomState(C + blocks)
+    x = jnp.asarray(rng.randn(2, H, H, C).astype(np.float32)).astype(
+        jnp.bfloat16)
+    w = jnp.asarray(rng.randn(blocks, 2, 3 * C, 3 * C).astype(np.float32)
+                    * 0.05).astype(jnp.bfloat16)
+    sc = (1.0 + 0.1 * rng.randn(blocks, 2, C)).astype(np.float32)
+    sh = (0.1 * rng.randn(blocks, 2, C)).astype(np.float32)
+    ref = reference_basic_chain(x, w, jnp.asarray(sc), jnp.asarray(sh),
+                                blocks)
+    assert ref.dtype == jnp.bfloat16
+    tx = torch.from_numpy(np.array(x.astype(jnp.float32))).permute(
+        0, 3, 1, 2).contiguous().bfloat16()
+    tw = torch.from_numpy(np.array(w.astype(jnp.float32))).bfloat16()
+    args = (tw, torch.from_numpy(sc), torch.from_numpy(sh), blocks)
+    ours = basic_chain(tx, *args)            # the CPU takes the plain twin
+    assert ours.dtype == torch.bfloat16
+    assert torch.equal(ours, basic_chain_plain(tx.float(), *args).bfloat16())
+    assert _rel_err(ours.float().permute(0, 2, 3, 1).numpy(),
+                    np.asarray(ref.astype(jnp.float32))) < 2e-3 + 2.0 ** -8
+
+
+def test_branch_in_train_mode_runs_unfused():
+    """The chain kernel is inference only (the reference turns fuse_chains
+    off in train mode, `layers.py:55`): a Branch in train mode with
+    fuse_chains runs its blocks one by one, with batch statistics, as the
+    unfused Branch does, and carries the graph."""
+    torch.manual_seed(0)
+    branch = Branch(16, 2)
+    branch.pack()
+    x = torch.randn(2, 16, 8, 8)
+    fused = LayerOpts(compute_dtype=torch.bfloat16, fuse_chains=True)
+    branch.train()
+    out = branch(x, fused)
+    assert out.requires_grad and out.grad_fn is not None
+    unfused = branch(x, MIXED)
+    np.testing.assert_array_equal(out.detach().numpy(),
+                                  unfused.detach().numpy())
+    branch.eval()
+    with torch.no_grad():
+        inference = branch(x, fused)      # packed kernel operands (plain)
+    assert not torch.equal(inference, out.detach())

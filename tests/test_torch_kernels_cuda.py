@@ -148,3 +148,93 @@ def test_deform_kernel_rejects_bad_operands(dev):
         deform_conv2d(x, torch.zeros(1, 4 * 18, 8, 8, device=dev), w)
     with pytest.raises(ValueError):
         deform_conv2d(x.half(), torch.zeros(1, 8 * 18, 8, 8, device=dev), w)
+
+
+@pytest.mark.parametrize("B,C,H,W,blocks", [
+    (2, 32, 128, 128, 4), (2, 256, 16, 16, 4), (1, 16, 13, 7, 3),
+    (2, 40, 20, 33, 2), (64, 64, 64, 64, 4), (1, 256, 16, 16, 1)])
+def test_chain_kernel_bf16_matches_plain(dev, B, C, H, W, blocks):
+    """The bf16-in / bf16-out variant: bit-equal to the f32 kernel on the
+    widened input, rounded to bf16 (the same plan and passes; block 0's
+    residual widened exactly), and within the chain's 5e-3 of its plain
+    twin, plus a bf16 step (2^-8 of max|ref|) for the final rounding.
+    K-split plans at (2, 40, 20, 33) and (1, 256, 16, 16); one, two and
+    three blocks (the f32 buffers' alternation)."""
+    g = torch.Generator().manual_seed(C + H + blocks)
+    x = torch.randn(B, C, H, W, generator=g).to(torch.bfloat16).to(dev)
+    w, sc, sh = _chain_operands(g, blocks, C, dev)
+    before = basic_chain.bf16_launches
+    out = basic_chain(x, w, sc, sh, blocks)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert basic_chain.bf16_launches == before + 2 * blocks
+    assert torch.equal(out, basic_chain(x.float(), w, sc, sh, blocks).to(
+        torch.bfloat16))
+    ref = basic_chain_plain(x, w, sc, sh, blocks)
+    assert ref.dtype == torch.bfloat16
+    assert _rel(out.float(), ref.float()) <= 5e-3 + 2.0 ** -8
+
+
+@pytest.mark.parametrize("B,C,H,W,G,Cout", [(8, 32, 128, 128, 8, 32),
+                                            (3, 12, 13, 29, 3, 40),
+                                            (2, 16, 9, 17, 2, 24),
+                                            (1, 40, 7, 9, 4, 8),
+                                            (1, 64, 7, 9, 8, 40)])
+def test_deform_kernel_bf16_matches_plain(dev, B, C, H, W, G, Cout):
+    """The bf16 variant (bf16 x and weight, f32 offsets, f32 out): the same
+    rounding points as the plain twin, so the samples agree bit for bit and
+    the outputs to f32 summation order (bf16 MMAs against the einsum): 1e-4
+    of max|ref|. Shapes as the f32 kernel's test."""
+    g = torch.Generator().manual_seed(B * C + H + 1)
+    x = torch.randn(B, C, H, W, generator=g).to(torch.bfloat16).to(dev)
+    off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
+    w = (torch.randn(Cout, C, 3, 3, generator=g) * 0.1).to(
+        torch.bfloat16).to(dev)
+    before = (deform_conv2d.launches, deform_conv2d.bf16_launches)
+    out = deform_conv2d(x, off, w, deform_groups=G)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32
+    assert (deform_conv2d.launches, deform_conv2d.bf16_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _rel(out, deform_conv2d_plain(x, off, w, deform_groups=G)) <= 1e-4
+
+
+def test_bf16_kernels_reject_other_dtypes(dev):
+    """No quiet casts: a dtype a kernel does not take raises."""
+    x = torch.zeros(1, 16, 8, 8, device=dev)
+    w = torch.zeros(16, 16, 3, 3, device=dev)
+    off = torch.zeros(1, 8 * 18, 8, 8, device=dev)
+    with pytest.raises(ValueError):       # bf16 x, f32 weight
+        deform_conv2d(x.bfloat16(), off, w)
+    with pytest.raises(ValueError):       # bf16 offsets
+        deform_conv2d(x.bfloat16(), off.bfloat16(), w.bfloat16())
+    g = torch.Generator().manual_seed(6)
+    cw, sc, sh = _chain_operands(g, 1, 16, dev)
+    with pytest.raises(ValueError):       # f16 activations
+        basic_chain(x.half(), cw, sc, sh, 1)
+
+
+def test_kernel_wrappers_raise_under_grad(dev):
+    """The kernels are forward only: under grad mode with an operand that
+    requires grad each wrapper raises (its output would carry no graph);
+    under no_grad the same call runs."""
+    g = torch.Generator().manual_seed(8)
+    a16 = torch.randn(2, 16, 24, generator=g).to(dev).requires_grad_()
+    lw = torch.rand(129, 24, generator=g).to(dev)
+    vpos = torch.randn(2, 3, 129, generator=g).to(dev)
+    x = torch.randn(1, 16, 8, 8, generator=g).to(dev).requires_grad_()
+    cw, sc, sh = _chain_operands(g, 1, 16, dev)
+    dw = torch.randn(16, 16, 3, 3, generator=g).to(dev)
+    off = torch.zeros(1, 8 * 18, 8, 8, device=dev)
+    calls = [lambda: skinning(a16, lw, vpos),
+             lambda: basic_chain(x, cw, sc, sh, 1),
+             lambda: basic_chain(x.detach().bfloat16().requires_grad_(), cw,
+                                 sc, sh, 1),
+             lambda: conv_pass(x, cw[0, 0], sc[0, 0], sh[0, 0]),
+             lambda: deform_conv2d(x, off, dw)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        with torch.no_grad():
+            call()
+    torch.cuda.synchronize()

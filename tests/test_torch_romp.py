@@ -16,7 +16,9 @@ from romp_tpu.ops import projection as jproj
 from romp_tpu.pipeline import romp_pipeline as jpipe
 from romp_tpu.smpl.assets import synthetic_assets
 from romp_tpu.smpl.body_model import SmplModel as JaxSmpl
-from romp_tpu_torch.models.layers import Conv2d, LayerOpts
+from romp_tpu_torch.models.layers import (
+    BasicBlock, Conv2d, LayerOpts, batch_norm, cast_bf16,
+)
 from romp_tpu_torch.models.romp import RompNet, calibrate_batchnorm
 from romp_tpu_torch.ops.centermap import parse_centermap2d, sample_maps_at
 from romp_tpu_torch.ops import projection as tproj
@@ -31,6 +33,7 @@ torch.set_num_threads(2)
 SIZE = 64
 TINY = "hrnet32_tiny"
 MIXED = LayerOpts(compute_dtype=torch.bfloat16)
+BF16_ACT = LayerOpts(compute_dtype=torch.bfloat16, act_dtype=torch.bfloat16)
 
 
 def _rel(a, b):
@@ -263,10 +266,19 @@ def test_compact_slots_matches_jax():
 
 
 def test_romp_config_refuses_settings_not_ported():
+    """resnet50 is not ported yet. bf16 activations are (act_dtype
+    bfloat16), but only with bf16 conv operands: JAX's conv refuses a bf16
+    result of f32 operands, and so does the port."""
     with pytest.raises(NotImplementedError):
         RompConfig(backbone="resnet50")
-    with pytest.raises(NotImplementedError):
-        RompConfig(compute_dtype="bfloat16", act_dtype="bfloat16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        RompConfig(compute_dtype="float32", act_dtype="bfloat16")
+    with pytest.raises(TypeError, match="preferred_element_type"):
+        jlayers.conv2d(jlayers.ParamStore(
+            {"c.weight": jnp.ones((1, 1, 2, 2))}, act_dtype=jnp.bfloat16),
+            "c", jnp.ones((1, 4, 4, 2)), 2, 1)
+    assert RompConfig(compute_dtype="bfloat16",
+                      act_dtype="bfloat16").opts == BF16_ACT
 
 
 def test_romp_inference_matches_jax(tiny):
@@ -312,3 +324,140 @@ def test_romp_inference_matches_jax(tiny):
                 np.testing.assert_allclose(
                     tout[key].numpy()[b, ts], np.asarray(jout[key])[b, jv[c]],
                     atol=1e-3, err_msg=key)
+
+
+def _bn_params(rng, C, prefix):
+    return {f"{prefix}.weight": (1 + 0.1 * rng.randn(C)).astype(np.float32),
+            f"{prefix}.bias": (0.1 * rng.randn(C)).astype(np.float32),
+            f"{prefix}.running_mean": (0.1 * rng.randn(C)).astype(np.float32),
+            f"{prefix}.running_var": (1 + rng.rand(C)).astype(np.float32)}
+
+
+def _bf16_close(ours, ref):
+    """Single bf16 layers: bit-equal but at a few elements, where a conv
+    sum within f32 summation noise of a bf16 rounding boundary rounds the
+    other way (one step; BN and the shift may make it up to one step of
+    max|ref|, 2^-7): at most 0.1% of the elements differ."""
+    assert ours.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+    ours, ref = ours.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    err = np.abs(ours - ref) / np.abs(ref).max()
+    assert err.max() <= 2.0 ** -7 and (err > 0).mean() <= 1e-3, (
+        err.max(), (err > 0).mean())
+
+
+@pytest.mark.parametrize("cin,cout,k,stride,bias", [
+    (3, 64, 3, 2, False), (64, 64, 3, 1, False), (34, 64, 3, 2, True),
+    (64, 145, 1, 1, True)])
+def test_bf16_act_conv_bn_relu_matches_jax(cin, cout, k, stride, bias):
+    """act_dtype=bfloat16 (`layers.py:122-133, 164-168`): the conv's f32
+    sum emitted in bf16, a bias added in bf16, BN folded in f32 and applied
+    in bf16, ReLU; the port's layers on weights cast once by cast_bf16."""
+    rng = np.random.RandomState(cin + cout + k)
+    x = rng.randn(2, 16, 16, cin).astype(np.float32)
+    params = {"c.weight": (rng.randn(k, k, cin, cout) * 0.1).astype(
+        np.float32), **_bn_params(rng, cout, "bn")}
+    if bias:
+        params["c.bias"] = rng.randn(cout).astype(np.float32)
+    store = jlayers.ParamStore({n: jnp.asarray(v) for n, v in params.items()},
+                               compute_dtype=jnp.bfloat16,
+                               act_dtype=jnp.bfloat16)
+    ref = jax.nn.relu(jlayers.batch_norm(store, "bn", jlayers.conv2d(
+        store, "c", jnp.asarray(x), cout, k, stride, bias=bias)))
+    sd = state_dict_from_jax(params)
+    conv, bn = Conv2d(cin, cout, k, stride, bias=bias), batch_norm(cout)
+    conv.load_state_dict({n[2:]: v for n, v in sd.items()
+                          if n.startswith("c.")})
+    bn.load_state_dict({n[3:]: v for n, v in sd.items()
+                        if n.startswith("bn.")})
+    cast_bf16(conv), cast_bf16(bn.eval())
+    with torch.inference_mode():
+        ours = torch.relu(bn(conv(torch.from_numpy(x).permute(0, 3, 1, 2),
+                                  BF16_ACT))).permute(0, 2, 3, 1)
+    _bf16_close(ours, ref)
+
+
+@pytest.mark.parametrize("cin,planes,stride,downsample", [
+    (64, 64, 1, False), (32, 64, 2, True)])
+def test_bf16_act_basic_block_matches_jax(cin, planes, stride, downsample):
+    """A BasicBlock under act_dtype=bfloat16: the residual add and ReLU in
+    bf16 (`layers.py:180-192`)."""
+    rng = np.random.RandomState(planes + stride)
+    x = rng.randn(2, 16, 16, cin).astype(np.float32)
+    params = {"b.conv1.weight": (rng.randn(3, 3, cin, planes) * 0.1).astype(
+        np.float32), "b.conv2.weight": (rng.randn(3, 3, planes, planes)
+                                        * 0.1).astype(np.float32),
+        **_bn_params(rng, planes, "b.bn1"), **_bn_params(rng, planes, "b.bn2")}
+    if downsample:
+        params["b.downsample.0.weight"] = (
+            rng.randn(1, 1, cin, planes) * 0.1).astype(np.float32)
+        params.update(_bn_params(rng, planes, "b.downsample.1"))
+    store = jlayers.ParamStore({n: jnp.asarray(v) for n, v in params.items()},
+                               compute_dtype=jnp.bfloat16,
+                               act_dtype=jnp.bfloat16)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = jlayers.basic_block(store, "b", xb, planes, stride, downsample)
+    block = BasicBlock(cin, planes, stride, downsample).eval()
+    block.load_state_dict({n[2:]: v for n, v in state_dict_from_jax(
+        params).items()})
+    cast_bf16(block)
+    with torch.inference_mode():
+        ours = block(torch.from_numpy(np.array(xb.astype(jnp.float32)))
+                     .permute(0, 3, 1, 2).bfloat16(), BF16_ACT)
+    _bf16_close(ours.permute(0, 2, 3, 1), ref)
+
+
+@pytest.mark.parametrize("fuse", [False, True])
+def test_tiny_maps_bf16_act_match_jax(tiny, fuse):
+    """act_dtype=bfloat16, whole tiny network (unfused, and with the
+    HRNet chains through the chain's plain twin, bf16 in and out). The
+    single layers agree bit for bit but at rare rounding flips (tests
+    above), and the random net spreads each flip, as on the mixed path. So,
+    as there, the port's bf16 maps lie within half of JAX's own
+    bf16-act-vs-f32 distance of JAX's bf16 maps (max and mean of
+    max|map|). Measured: 0.30 / 0.23 of it unfused (center / params, max),
+    0.33 / 0.28 fused. The maps come out bf16, as JAX's."""
+    net = RompNet(TINY)
+    net.load_state_dict(tiny["sd"], strict=True)
+    calibrate_batchnorm(net, torch.from_numpy(np.random.RandomState(9).rand(
+        4, SIZE, SIZE, 3).astype(np.float32) * 255.0))
+    sd = net.state_dict()
+    jp = {k: jnp.asarray(sd[k].numpy())
+          if k.endswith(("running_mean", "running_var")) else v
+          for k, v in tiny["jp"].items()}
+    image = jnp.asarray(tiny["image"])
+    jf32 = romp_forward(jlayers.ParamStore(jp), image, backbone=TINY)
+    jbf16 = romp_forward(jlayers.ParamStore(
+        jp, compute_dtype=jnp.bfloat16, act_dtype=jnp.bfloat16), image,
+        backbone=TINY)
+    cast_bf16(net)
+    if fuse:
+        net.pack_chains()
+    opts = LayerOpts(compute_dtype=torch.bfloat16, act_dtype=torch.bfloat16,
+                     fuse_chains=fuse)
+    with torch.inference_mode():
+        maps = net(torch.from_numpy(tiny["image"]), opts)
+    for ours, ref, f32 in zip(maps, jbf16, jf32):
+        assert ours.dtype == torch.bfloat16 and ref.dtype == jnp.bfloat16
+        ref = np.asarray(ref.astype(jnp.float32))
+        mx, mean = _rel(ours.float().numpy(), ref)
+        gap_mx, gap_mean = _rel(np.asarray(f32), ref)
+        assert mx <= 0.5 * gap_mx and mean <= 0.5 * gap_mean, (
+            mx, mean, gap_mx, gap_mean)
+
+
+def test_romp_inference_bf16_act_on_cpu(tiny):
+    """RompPipeline with act_dtype=bfloat16: the weights are cast once at
+    load, the head maps widened to f32 before the parse (as JAX), and the
+    outputs are finite, of the f32 pipeline's shapes and dtypes."""
+    assets = synthetic_assets(seed=0)
+    cfg_kw = dict(input_size=SIZE, max_person=4, conf_thresh=-1e9,
+                  backbone=TINY, compute_dtype="bfloat16")
+    outs = [RompPipeline(tiny["sd"], SmplModel(assets),
+                         RompConfig(act_dtype=act, **cfg_kw), "cpu")(
+                             tiny["image"])
+            for act in ("float32", "bfloat16")]
+    assert set(outs[0]) == set(outs[1])
+    for k in outs[0]:
+        assert outs[1][k].shape == outs[0][k].shape, k
+        assert outs[1][k].dtype == outs[0][k].dtype, k
+        assert torch.isfinite(outs[1][k].float()).all(), k

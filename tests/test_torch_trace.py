@@ -19,7 +19,7 @@ from romp_tpu.smpl.body_model import SmplModel as JaxSmpl
 from romp_tpu.smpl.body_model import smpla_forward as jax_smpla
 from romp_tpu_torch.models import trace as ttrace
 from romp_tpu_torch.models.layers import (
-    BasicBlock3d, Conv1d, Conv3d, LayerOpts,
+    BasicBlock3d, Conv1d, Conv3d, LayerOpts, cast_bf16,
 )
 from romp_tpu_torch.ops.centermap import parse_centermap3d
 from romp_tpu_torch.ops.projection import perspective_projection
@@ -32,6 +32,7 @@ torch.set_num_threads(2)
 MAP = 32
 CLIP = 2
 MIXED = LayerOpts(compute_dtype=torch.bfloat16)
+BF16_ACT = LayerOpts(compute_dtype=torch.bfloat16, act_dtype=torch.bfloat16)
 MAP_FIELDS = ("center_maps_3d", "center_maps_fv", "cam_maps_3d",
               "motion_maps_3d", "motion_maps_fv", "mesh_feature_maps",
               "cam_motion_maps", "cam_rot_maps")
@@ -274,3 +275,125 @@ def test_smpla_forward_matches_jax():
                              torch.from_numpy(pose), root_align=True)
     for i, baby_row in enumerate((False, True, False, True)):
         assert torch.equal(tv[i], (v_baby if baby_row else v_adult)[i])
+
+
+def _bf16_act_close(ours, ref):
+    """Single bf16-activation layers: JAX's dtype, and bit-equal but at a
+    few elements where a sum within f32 summation noise of a bf16 rounding
+    boundary rounds the other way (up to one step of max|ref|, 2^-7; at
+    most 1% of the elements differ: the 3D block's second conv reads the
+    first one's flips)."""
+    assert str(ours.dtype).split(".")[-1] == str(ref.dtype), (
+        ours.dtype, ref.dtype)
+    ours = ours.float().numpy()
+    ref = np.asarray(ref.astype(jnp.float32))
+    err = np.abs(ours - ref) / np.abs(ref).max()
+    assert err.max() <= 2.0 ** -7 and (err > 0).mean() <= 0.01, (
+        err.max(), (err > 0).mean())
+
+
+@pytest.mark.parametrize("bias", [False, True])
+def test_conv1d_bf16_act_matches_jax(bias):
+    """act_dtype=bfloat16 (`layers.py:221-227`): the bf16 conv's output, a
+    bf16 array; with a bias (f32) `y + bias` promotes it to f32, as in
+    JAX, so the next layer gets f32."""
+    rng = np.random.RandomState(11)
+    x = rng.randn(2, 40, 17).astype(np.float32)
+    w = (rng.randn(24, 40, 3) * 0.2).astype(np.float32)
+    b = rng.randn(24).astype(np.float32)
+    conv = Conv1d(40, 24, 3, bias=bias)
+    conv.load_state_dict({"weight": torch.from_numpy(w),
+                          **({"bias": torch.from_numpy(b)} if bias else {})})
+    cast_bf16(conv)
+    params = {"c.weight": jnp.asarray(w.transpose(2, 1, 0))}
+    if bias:
+        params["c.bias"] = jnp.asarray(b)
+    store = jlayers.ParamStore(params, compute_dtype=jnp.bfloat16,
+                               act_dtype=jnp.bfloat16)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    ref = jlayers.conv1d(store, "c", xb.transpose(0, 2, 1), 24, 3,
+                         bias=bias).transpose(0, 2, 1)
+    assert ref.dtype == (jnp.float32 if bias else jnp.bfloat16)
+    with torch.no_grad():
+        ours = conv(torch.from_numpy(np.array(xb.astype(jnp.float32)))
+                    .bfloat16(), BF16_ACT)
+    _bf16_act_close(ours, ref)
+
+
+@pytest.mark.parametrize("f32_input", [False, True])
+@pytest.mark.parametrize("C", [1, 3])
+def test_basic_block_3d_bf16_act_matches_jax_zband(C, f32_input):
+    """The port's Conv3d block against the JAX z-band block under
+    act_dtype=bfloat16: bf16 convs, BN in bf16, the residual cast to bf16
+    before the add (`layers.py:329`), so a bf16 block out of an f32 input
+    too (the cam maps' refiner reads the f32 coord-map sum)."""
+    rng = np.random.RandomState(13 + C)
+    x = rng.randn(2, C, 8, 6, 5).astype(np.float32)
+    params = {}
+    for i in (1, 2):
+        params[f"b.conv{i}.weight"] = (rng.randn(3, 3, 3, C, C) * 0.3
+                                       ).astype(np.float32)
+        params[f"b.bn{i}.weight"] = (1 + 0.1 * rng.randn(C)).astype(np.float32)
+        params[f"b.bn{i}.bias"] = (0.1 * rng.randn(C)).astype(np.float32)
+        params[f"b.bn{i}.running_mean"] = (0.1 * rng.randn(C)).astype(
+            np.float32)
+        params[f"b.bn{i}.running_var"] = (1 + rng.rand(C)).astype(np.float32)
+    block = BasicBlock3d(C, C).eval()
+    sd = state_dict_from_jax(params)
+    block.load_state_dict({k[2:]: v for k, v in sd.items()}, strict=True)
+    cast_bf16(block)
+    store = jlayers.ParamStore(
+        {k: jnp.asarray(v) for k, v in params.items()},
+        compute_dtype=jnp.bfloat16, act_dtype=jnp.bfloat16)
+    jx = jnp.asarray(x.transpose(0, 2, 3, 4, 1))
+    tx = torch.from_numpy(x)
+    if not f32_input:
+        jx = jx.astype(jnp.bfloat16)
+        tx = tx.bfloat16()
+    ref = jlayers.basic_block_3d(store, "b", jx, C).transpose(0, 4, 1, 2, 3)
+    assert ref.dtype == jnp.bfloat16
+    with torch.no_grad():
+        ours = block(tx, BF16_ACT)
+    _bf16_act_close(ours, ref)
+
+
+def test_trace_forward_maps_bf16_act_match_jax(head):
+    """act_dtype=bfloat16, the whole head on one clip: the deform in bf16
+    (bf16 features and weight, f32 offsets; JAX's rounding points, see
+    test_torch_deform.py), the ConvGRU's f32 hidden state promoted as in
+    JAX, bf16 maps. Each block agrees with JAX's bit for bit but at rare
+    rounding flips (0.002-0.03% of the elements of each of
+    cam_motion_head's blocks fed the same input), and the deep random
+    head spreads them (six 3x3 blocks reach half of cam_motion_maps'
+    elements). So each map is held to JAX's own bf16-act-vs-f32 distance:
+    the mean difference within 0.75x of it, the largest within 1.5x
+    (measured: cam_motion_maps' mean difference at 0.61x, the others'
+    lower)."""
+    jp, net = head
+    net = ttrace.TraceNet(None, MAP)
+    net.load_state_dict(state_dict_from_jax(jp), strict=True)
+    cast_bf16(net.eval())
+    feats, flows = _clip_inputs(21)
+    jf32, _ = _jax_maps(jp, feats, flows, None)
+    jbf16, jhidden = jtrace.trace_forward_maps(
+        jlayers.ParamStore({k: jnp.asarray(v) for k, v in jp.items()},
+                           compute_dtype=jnp.bfloat16,
+                           act_dtype=jnp.bfloat16),
+        jnp.asarray(feats.transpose(0, 2, 3, 1)),
+        jnp.asarray(flows.transpose(0, 2, 3, 1)), None,
+        temp_clip_length=CLIP)
+    with torch.no_grad():
+        tbf16, thidden = ttrace.trace_forward_maps(
+            net, torch.from_numpy(feats), torch.from_numpy(flows), None,
+            CLIP, BF16_ACT)
+    for name in MAP_FIELDS:
+        ref, ours = getattr(jbf16, name), getattr(tbf16, name)
+        assert str(ours.dtype).split(".")[-1] == str(ref.dtype), name
+        ref = np.asarray(ref.astype(jnp.float32))
+        f32 = np.asarray(getattr(jf32, name))
+        d = np.abs(ours.float().numpy() - ref) / np.abs(ref).max()
+        gap = np.abs(f32 - ref) / np.abs(ref).max()
+        assert d.max() <= 1.5 * gap.max() and d.mean() <= 0.75 * gap.mean(), (
+            name, d.max(), d.mean(), gap.max(), gap.mean())
+    for h_t, h_j in zip(thidden, jhidden):
+        assert h_t.dtype == torch.float32 and h_j.dtype == jnp.float32
