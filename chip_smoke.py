@@ -1,5 +1,6 @@
-"""Drive the PyTorch + CUDA port (the ROMP and BEV image paths and the
-TRACE video path, with and without RAFT's optical flow) once on one GPU.
+"""Drive the PyTorch + CUDA port (the ROMP and BEV image paths, the TRACE
+video path with and without RAFT's optical flow, serving, and ROMP's
+training) once on one GPU.
 
     python3 chip_smoke.py
 
@@ -32,7 +33,11 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     point on 2 images and through `BevPipeline` at batch 1 and 16, mixed
     path, unfused and with `fuse_chains`. Then the bf16-activation mode
     (act_dtype bfloat16): ROMP and BEV at batch 16, unfused and fused, and
-    TRACE on three clips. Each path's kernel launch counters are zeroed
+    TRACE on three clips. Then training at full width (HRNet-W32,
+    512x512, batch 64 x 8 GT persons, the config's defaults: mixed path,
+    remat "stage", AdamW): `Trainer.fit` for 8 steps on device-made
+    batches, `launch.main` for 3 steps over a seeded 16-image pack, and
+    ResNet-50 for 3 steps. Each path's kernel launch counters are zeroed
     just before it and read just after;
  5. card vs CPU: the same weights and inputs through the port on the CPU
     (plain versions) and on the card (kernels), f32 with TF32 off (ROMP,
@@ -44,6 +49,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     (one bf16 step at no more than 1% of the elements), every fused chain
     against its plain twin and TRACE's deform against its plain twin, on
     the same inputs (ROMP and BEV at batch 1, TRACE on one 2-frame clip);
+    then one f32 train step of the full-width HRNet-W32 at batch 2 and
+    256x256: losses, BatchNorm updates and every gradient;
  serve: `romp_tpu_torch.serve`'s server (built as `main` builds it) on a
     free port: ROMP at full width, max_batch 8, --precompile, bf16
     activations; `run_batch` once under torch.cuda.set_sync_debug_mode
@@ -56,12 +63,15 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     split (RAFT's in the synced `flow` stage) and RAFT alone under the
     profiler (device-busy ms and kernels a clip); BEV img/s at batch 16 and
     batch-1 latency, unfused and fused; ROMP img/s at batch 64 with bf16
-    activations, unfused and fused.
+    activations, unfused and fused; training at the defaults: s a step,
+    steps/s and img/s, peak memory, device busy / idle over 2 profiled
+    steps beside one forward, and the host syncs of one step.
 Then the kernels' JSON line, the card's name and power limit, and the
 result line.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -86,9 +96,12 @@ from romp_tpu_torch.models.bev import (  # noqa: E402
     BevNet, bev_forward_maps, bev_head_maps, bev_regress_params,
 )
 from romp_tpu_torch.models.hrnet import Branch  # noqa: E402
-from romp_tpu_torch.models.romp import RompNet  # noqa: E402
+from romp_tpu_torch.models.romp import (  # noqa: E402
+    RompNet, init_romp_params,
+)
 from romp_tpu_torch.models.layers import (  # noqa: E402
     Conv1d, Conv2d, Conv3d, LayerOpts, cast_bf16, he_normal_,
+    record_bn_updates,
 )
 from romp_tpu_torch.models.raft import (  # noqa: E402
     Raft, init_raft_params, raft_forward,
@@ -107,7 +120,8 @@ from romp_tpu_torch.ops.fused_chain import (  # noqa: E402
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain, launch_plan,
 )
 from romp_tpu_torch.ops.lbs import (  # noqa: E402
-    skinning, skinning_plain, skinning_plan,
+    skinning, skinning_backward, skinning_bwd_plain, skinning_plain,
+    skinning_plan,
 )
 from romp_tpu_torch.pipeline.bev_pipeline import (  # noqa: E402
     BevConfig, BevPipeline,
@@ -124,6 +138,14 @@ from romp_tpu_torch.serve import (  # noqa: E402
 from romp_tpu_torch.smpl.body_model import (  # noqa: E402
     SmplModel, synthetic_assets,
 )
+from romp_tpu_torch.config import load_config  # noqa: E402
+from romp_tpu_torch.train import launch as train_launch  # noqa: E402
+from romp_tpu_torch.train import train_step as tts  # noqa: E402
+from romp_tpu_torch.train.data.dataset import (  # noqa: E402
+    ImageAnnotation, save_pack,
+)
+from romp_tpu_torch.train.priors import GmmPrior  # noqa: E402
+from romp_tpu_torch.train.trainer import Trainer  # noqa: E402
 from romp_tpu_torch.utils.chain_plans import device_events  # noqa: E402
 from romp_tpu_torch.utils.kernel_breakdown import warm_clocks  # noqa: E402
 from romp_tpu_torch.utils.profiling import (  # noqa: E402
@@ -134,11 +156,13 @@ MIXED = LayerOpts(compute_dtype=torch.bfloat16)
 BF16_ACT = LayerOpts(compute_dtype=torch.bfloat16, act_dtype=torch.bfloat16)
 BF16_ACT_FUSED = dataclasses.replace(BF16_ACT, fuse_chains=True)
 # every kernel variant, as the kernels line names them
-KERNELS = ("skinning", "basic_chain", "basic_chain_bf16", "deform_conv",
-           "deform_conv_bf16")
+KERNELS = ("skinning", "skinning_bwd", "basic_chain", "basic_chain_bf16",
+           "deform_conv", "deform_conv_bf16")
 BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))  # (C, H) at 512x512
 CHAIN_BATCHES = (1, 2, 64)   # batch-1 latency, PR 1's rows, offline batch
 SKIN_N = (64, 1024, 4096)   # batch x max_person: 1, 16 and 64 x 64
+SKIN_BWD_N = (64, 512, 1024, 4096)   # training: 64 x 8 GT persons = 512
+TRAIN_BATCH, TRAIN_PERSONS, TRAIN_STEPS = 64, 8, 8   # the config's defaults
 V = 6890
 DEFORM = dict(B=8, C=32, H=128, W=128, G=8, Cout=32)   # TRACE's warp
 TRACE_CLIP = 8
@@ -232,6 +256,7 @@ def device_ms(fn, launches, calls=20, tries=3):
 def reset_counts():
     """Every kernel wrapper's launch counter to 0."""
     skinning.launches = conv_pass.launches = deform_conv2d.launches = 0
+    skinning_backward.launches = 0
     basic_chain.bf16_launches = deform_conv2d.bf16_launches = 0
 
 
@@ -239,6 +264,7 @@ def launch_counts():
     """Launches per kernel variant since reset_counts (the f32 variants'
     counters include their bf16 variants' launches: those are taken out)."""
     return {"skinning": skinning.launches,
+            "skinning_bwd": skinning_backward.launches,
             "basic_chain": conv_pass.launches - basic_chain.bf16_launches,
             "basic_chain_bf16": basic_chain.bf16_launches,
             "deform_conv": (deform_conv2d.launches
@@ -280,6 +306,7 @@ def phase_kernels(dev):
                                 {"skinning_tf32_kernel": 1}),
             plain_ms=time_ms(lambda: skinning_plain(a16, w, vpos)),
             **bounds))
+    rows["skinning_bwd"] = [skin_bwd_row(dev, g, n) for n in SKIN_BWD_N]
     rows["basic_chain"] = [chain_row(dev, g, B, C, H)
                            for B in CHAIN_BATCHES for C, H in BRANCHES]
     rows["deform_conv"].append(deform_row(dev, g))
@@ -291,6 +318,39 @@ def phase_kernels(dev):
             phase(3, f"kernel {name}", **row)
     phase(3, "sass", hmma_instructions=tensor_core_sass())
     return rows
+
+
+def skin_bwd_row(dev, g, n):
+    """The skinning backward kernel (dA16, dv) against
+    `skinning_bwd_plain` at n persons, V = 6890: bar 1e-4 of max|ref|,
+    the forward's."""
+    a16 = torch.randn(n, 16, 24, generator=g).to(dev)
+    w = torch.rand(V, 24, generator=g).to(dev)
+    w /= w.sum(1, keepdim=True)
+    vpos = torch.randn(n, 3, V, generator=g).to(dev)
+    cot = torch.randn(n, 3, V, generator=g).to(dev)
+    da, dv = skinning_backward(a16, w, vpos, cot)
+    ra, rv = skinning_bwd_plain(a16, w, vpos, cot)
+    torch.cuda.synchronize()
+    err = max(rel_err(da, ra), rel_err(dv, rv))
+    check(err <= 1e-4, f"skinning backward N={n}: rel err {err}")
+    # g and v_posed read and dv written once (the dominant bytes), a16 and W
+    # read, dA16 written; the products of T16's 16 rows and dA16's 12 rows
+    # with W (24 joints), split TF32, and per (person, vertex) dv's 3 x 3
+    # FMAs and the 12 products g[m] * vh[n]
+    bounds = split_tf32_bounds(
+        4 * (3 * n * 3 * V + n * 16 * 24 * 2 + V * 24),
+        n * V * 2 * (16 + 12) * 24, n * V * (18 + 12))
+    return dict(
+        shape=f"N={n},V={V}", plan=skinning_plan(n, V)._asdict(),
+        max_abs_err=float(max((da - ra).abs().max(), (dv - rv).abs().max())),
+        rel_err=err,
+        ms=time_ms(lambda: skinning_backward(a16, w, vpos, cot)),
+        device_ms=device_ms(lambda: skinning_backward(a16, w, vpos, cot),
+                            {"skinning_bwd_tf32_kernel": 1,
+                             "skinning_bwd_reduce_kernel": 1}),
+        plain_ms=time_ms(lambda: skinning_bwd_plain(a16, w, vpos, cot)),
+        **bounds)
 
 
 def seeded_branch(g, C, blocks=4):
@@ -364,7 +424,8 @@ def chain_row(dev, g, B, C, H, blocks=4):
 
 
 TENSOR_CORE_KERNELS = ("conv3x3_bn_act_mma_kernel", "skinning_tf32_kernel",
-                       "deform_conv_tf32_kernel", "deform_conv_bf16_kernel")
+                       "skinning_bwd_tf32_kernel", "deform_conv_tf32_kernel",
+                       "deform_conv_bf16_kernel")
 
 
 def tensor_core_sass():
@@ -1396,6 +1457,266 @@ def phase_bev_time(dev, params, adult, baby, smi):
     return rows
 
 
+def train_config(ckdir, *overrides):
+    """The training config's defaults (`config.py`: HRNet-W32, 512x512,
+    batch 64, 8 GT persons, mixed path, f32 activations, remat "stage",
+    AdamW lr 3e-4, wd 1e-6, clip 3.0, the synthetic GMM prior) with a
+    checkpoint directory under build/ and no validation."""
+    cfg = load_config(None, overrides=[f"train.checkpoint_dir={ckdir}",
+                                       "train.test_interval=0",
+                                       "train.log_every=1", *overrides])
+    return cfg
+
+
+def recorded_fit(trainer, batches, steps):
+    """trainer.fit over `steps` batches, keeping each step's packed metrics
+    (device tensors, read after the run): a list of dicts."""
+    packed, step = [], trainer.step
+    trainer.step = lambda b: packed.append(step(b)) or packed[-1]
+    trainer.fit(batches, max_steps=steps)
+    torch.cuda.synchronize()
+    trainer.step = step
+    return [dict(zip(trainer._metric_names, p.tolist())) for p in packed]
+
+
+def check_train_steps(rows, what):
+    check(all(np.isfinite(r["total"]) and r["grads_finite"] == 1.0
+              for r in rows), f"{what}: a step was not finite: {rows}")
+    check(len({r["total"] for r in rows}) > 1, f"{what}: the loss froze")
+
+
+def write_train_pack(root, n=16, size=512):
+    """n seeded images (cv2) and an annotation pack of 1-3 persons each:
+    2D keypoints (some unlabelled), 3D keypoints, poses and betas."""
+    import cv2
+
+    rng = np.random.RandomState(5)
+    (root / "data").mkdir(parents=True, exist_ok=True)
+    records = []
+    for i in range(n):
+        path = root / f"img{i:02d}.jpg"
+        cv2.imwrite(str(path), (rng.rand(size, size, 3) * 255).astype(
+            np.uint8))
+        p = rng.randint(1, 4)
+        kp = rng.uniform(40, size - 40, (p, 54, 2)).astype(np.float32)
+        kp[:, 40:] = -2.0
+        records.append(ImageAnnotation(
+            str(path), kp, kp3ds=(rng.randn(p, 54, 3) * 0.3).astype(
+                np.float32),
+            poses=(rng.randn(p, 66) * 0.3).astype(np.float32),
+            betas=(rng.randn(p, 10) * 0.5).astype(np.float32)))
+    save_pack(str(root / "data" / "smoke.npz"), records)
+
+
+def phase_train(dev):
+    """Training at full width (HRNet-W32, 512x512, batch 64 x 8 GT persons,
+    the config's defaults): Trainer.fit over 8 device-made synthetic batches
+    (each step finite, grads_finite 1, the loss moving, skinning's forward
+    and backward kernels launched); then the launcher, `launch.main`, over
+    a seeded pack of 16 cv2 images (data loading and augmentation
+    included) for 3 steps; then ResNet-50 for 3 steps. Counters zeroed
+    before each and read after it. Returns the launches per path."""
+    smpl = SmplModel(synthetic_assets(seed=0), dev)
+    by_path, out = {}, {}
+    cfg = train_config(_build.BUILD_DIR / "smoke_train")
+    check((cfg.train.batch_size, cfg.data.num_person, cfg.model.input_size,
+           cfg.train.compute_dtype, cfg.train.act_dtype, cfg.train.remat,
+           cfg.model.backbone) == (TRAIN_BATCH, TRAIN_PERSONS, 512,
+                                   "bfloat16", "float32", "stage",
+                                   "hrnet32"),
+          "the training defaults moved")
+    trainer = Trainer(cfg, smpl, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = recorded_fit(trainer, (tts.make_synthetic_batch(
+        i, TRAIN_BATCH, TRAIN_PERSONS, 512, dev) for i in range(TRAIN_STEPS)),
+        TRAIN_STEPS)
+    by_path["train"] = launch_counts()
+    check(len(rows) == TRAIN_STEPS, "Trainer.fit: steps")
+    check_train_steps(rows, "Trainer.fit")
+    check(by_path["train"]["skinning"] == TRAIN_STEPS
+          and by_path["train"]["skinning_bwd"] == TRAIN_STEPS,
+          f"train launches {by_path['train']}")
+    out["fit"] = dict(seconds=time.perf_counter() - t0,
+                      total=[r["total"] for r in rows],
+                      last=rows[-1], launches=by_path["train"])
+    del trainer
+    # the entry point, with data loading
+    root = _build.BUILD_DIR / "smoke_pack"
+    write_train_pack(root)
+    ck = _build.BUILD_DIR / "smoke_launch"
+    log = ck / "train_log.jsonl"
+    if log.exists():
+        log.unlink()
+    reset_counts()
+    t0 = time.perf_counter()
+    check(train_launch.main(
+        ["--data_root", str(root / "data"), "--max_steps", "3", "--GPU",
+         str(dev.index or 0), "data.datasets=smoke",
+         f"train.checkpoint_dir={ck}", "train.test_interval=0",
+         "train.log_every=1"]) == 0, "launch.main")
+    torch.cuda.synchronize()
+    by_path["train_launch"] = launch_counts()
+    logged = [json.loads(line) for line in log.read_text().splitlines()]
+    check([r["step"] for r in logged] == [1, 2, 3]
+          and all(r["grads_finite"] == 1.0 and np.isfinite(r["total"])
+                  for r in logged), f"launch.main log {logged}")
+    check(by_path["train_launch"]["skinning_bwd"] == 3,
+          f"launch.main launches {by_path['train_launch']}")
+    out["launch"] = dict(seconds=time.perf_counter() - t0, log=logged[-1],
+                         launches=by_path["train_launch"])
+    # ResNet-50
+    cfg = train_config(_build.BUILD_DIR / "smoke_train_resnet",
+                       "model.backbone=resnet50")
+    trainer = Trainer(cfg, smpl, device=dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = recorded_fit(trainer, (tts.make_synthetic_batch(
+        50 + i, TRAIN_BATCH, TRAIN_PERSONS, 512, dev) for i in range(3)), 3)
+    by_path["train_resnet50"] = launch_counts()
+    check_train_steps(rows, "ResNet-50")
+    check(by_path["train_resnet50"]["skinning_bwd"] == 3,
+          f"ResNet-50 launches {by_path['train_resnet50']}")
+    out["resnet50"] = dict(seconds=time.perf_counter() - t0,
+                           total=[r["total"] for r in rows],
+                           launches=by_path["train_resnet50"])
+    del trainer
+    torch.cuda.empty_cache()
+    phase(4, "slice", path="train", **out)
+    return by_path
+
+
+def train_grads(net, batch, smpl, cfg, prior):
+    """One step's losses, gradients (by name) and BatchNorm updates."""
+    net.train()
+    updates = record_bn_updates(net)
+    ctx = (precision_flags(cfg) if next(net.parameters()).is_cuda
+           else contextlib.nullcontext())
+    with ctx:
+        total, metrics = tts.compute_losses(net, batch, smpl, cfg, prior)
+        names = sorted(k for k, _ in net.named_parameters())
+        params = dict(net.named_parameters())
+        grads = torch.autograd.grad(total, [params[k] for k in names])
+    record_bn_updates(net, on=False)
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {k: g.cpu() for k, g in zip(names, grads)},
+            {k: v.cpu() for k, v in updates.items()})
+
+
+def phase_train_card_vs_cpu(dev):
+    """One f32 train step of the full-width HRNet-W32 at batch 2 (256x256:
+    the CPU side at 512x512 takes minutes), the same seeded weights and
+    batch on the card (TF32 off) and on the CPU, in f32, and on the CPU in
+    f64 as the reference. This step is ill-conditioned at random weights
+    (train-mode BatchNorm's backward subtracts nearly equal terms): the
+    CPU's own f32 gradients are off the f64 ones by 2.5% at the median
+    tensor and 12.6% at the worst, so the card's f32 step is held to be as
+    exact as the CPU's: against f64, its median and its worst gradient
+    error at most 2x the CPU's (measured on an H100: 0.021 and 0.148, 0.85x
+    and 1.18x), the losses and BatchNorm updates within 1e-3 relative
+    (measured 2.0e-5 and 1.6e-5, as the CPU's)."""
+    sd = init_romp_params(torch.Generator().manual_seed(3))
+    batch = tts.make_synthetic_batch(3, 2, 4, 256, "cpu")
+    cfg = tts.TrainConfig(remat="none")
+    assets = synthetic_assets(seed=0)
+    results = {}
+    for where, d, dt in (("f64", torch.device("cpu"), torch.float64),
+                         ("cpu", torch.device("cpu"), torch.float32),
+                         ("card", dev, torch.float32)):
+        net = RompNet()
+        net.load_state_dict(sd)
+        prior = GmmPrior.synthetic()
+        results[where] = train_grads(
+            net.to(d, dt), {k: v.to(d, dt) if v.is_floating_point()
+                            else v.to(d) for k, v in batch.items()},
+            SmplModel(assets, d).to(dt), cfg,
+            GmmPrior(*(t.to(d, dt) for t in (prior.means, prior.precisions,
+                                             prior.nll_weights))))
+    (lr, gr, ur), (lc, gc, uc), (lg, gg, ug) = (
+        results["f64"], results["cpu"], results["card"])
+    loss_err = {k: abs(lg[k] - v) / max(abs(v), 1e-3) for k, v in lr.items()}
+    bn_err = max(rel_err(ug[k], v) for k, v in ur.items())
+    gmax = max(float(v.abs().max()) for v in gr.values())
+    card, cpu = {}, {}
+    for k, ref in gr.items():
+        if float(ref.abs().max()) > 1e-6 * gmax:   # not exactly-zero ones
+            card[k], cpu[k] = rel_err(gg[k], ref), rel_err(gc[k], ref)
+    worst = sorted(card, key=card.get)[-5:]
+    row = dict(loss_rel_errs_vs_f64=loss_err, bn_update_rel_err_vs_f64=bn_err,
+               grads=len(card),
+               grad_rel_err_vs_f64_median={
+                   "card": statistics.median(card.values()),
+                   "cpu": statistics.median(cpu.values())},
+               grad_rel_err_vs_f64_max={"card": max(card.values()),
+                                        "cpu": max(cpu.values())},
+               worst_card={k: (card[k], cpu[k]) for k in worst})
+    phase(5, "card vs cpu", path="train", **row)
+    check(max(loss_err.values()) <= 1e-3 and bn_err <= 1e-3,
+          f"train card vs f64: losses {loss_err}, BN {bn_err}")
+    check(row["grad_rel_err_vs_f64_median"]["card"]
+          <= 2 * row["grad_rel_err_vs_f64_median"]["cpu"]
+          and row["grad_rel_err_vs_f64_max"]["card"]
+          <= 2 * row["grad_rel_err_vs_f64_max"]["cpu"],
+          f"train card vs f64: gradients {row}")
+
+
+def phase_train_time(dev, smi):
+    """Training at the defaults (HRNet-W32 512x512, batch 64 x 8, mixed,
+    remat "stage"): seconds a step over 8 steps on device-made batches (host
+    clock, each ended by a device barrier; the median of steps 3-8), steps/s
+    and images/s, peak device memory; device busy / idle share over 2
+    profiled steps, beside one inference forward of the same net at batch
+    64 (mixed, eval mode) for the step-to-forward ratio; one step under
+    torch.cuda.set_sync_debug_mode("warn"), its host syncs recorded."""
+    import warnings
+
+    smpl = SmplModel(synthetic_assets(seed=0), dev)
+    trainer = Trainer(train_config(_build.BUILD_DIR / "smoke_train_time",
+                                   "train.tensorboard=false"), smpl,
+                      device=dev)
+    batches = [tts.make_synthetic_batch(100 + i, TRAIN_BATCH, TRAIN_PERSONS,
+                                        512, dev) for i in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        trainer.step(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    sec = statistics.median(times[2:])
+    peak = torch.cuda.max_memory_allocated(dev)
+    prof, _ = device_profile(lambda: trainer.step(batches[0]), 2, 1)
+    net = trainer.state.net.eval()
+    with torch.no_grad(), precision_flags(RompConfig(
+            compute_dtype="bfloat16")):
+        fwd, _ = device_profile(lambda: net(batches[0]["image"], MIXED), 3, 1)
+    trainer.state.net.train()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        trainer.step(batches[1])
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = sorted({f"{os.path.relpath(w.filename)}:{w.lineno}"
+                    for w in caught
+                    if "called a synchronizing" in str(w.message)})
+    row = dict(path="train", backbone="hrnet32", batch=TRAIN_BATCH,
+               persons=TRAIN_PERSONS, compute_dtype="bfloat16",
+               remat="stage", step_s=times, median_step_s=sec,
+               steps_per_s=1 / sec, img_per_s=TRAIN_BATCH / sec,
+               peak_memory_gb=peak / 1e9, step_profile=prof,
+               forward_profile=fwd,
+               step_over_forward_device=(prof["device_busy_ms_per_call"]
+                                         / fwd["device_busy_ms_per_call"]),
+               host_syncs_in_a_step=syncs, card=smi)
+    phase(6, "time", **row)
+    del trainer
+    torch.cuda.empty_cache()
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run "
@@ -1442,21 +1763,26 @@ def main():
     bev_launches = phase_bev_slice(dev, bev_params, adult, baby, images16)
     bf16_launches = phase_bf16_slices(dev, params, assets, images16,
                                       bev_params, adult, baby, trace_ckpt)
+    train_launches = phase_train(dev)
     phase_card_vs_cpu(dev, params, assets)
     phase_trace_card_vs_cpu(dev, trace_params)
     phase_raft_card_vs_cpu(dev)
     phase_bev_card_vs_cpu(dev, bev_params)
     phase_bf16_card_vs_cpu(dev, params, bev_params, trace_params)
+    phase_train_card_vs_cpu(dev)
     serve_launches = phase_serve(dev, _build.BUILD_DIR / "smoke_weights.pth",
                                  _build.BUILD_DIR / "smoke_bev_weights.pth",
                                  smi)
     phase_time(dev, params, assets, smi)
     phase_trace_time(dev, trace_ckpt, raft_ckpt, smi)
     phase_bev_time(dev, bev_params, adult, baby, smi)
+    phase_train_time(dev, smi)
 
     meta = {
         "skinning": ("romp_tpu_torch/csrc/lbs.cu",
                      "romp_tpu/ops/pallas_lbs.py:46"),
+        "skinning_bwd": ("romp_tpu_torch/csrc/lbs.cu",
+                         "romp_tpu/ops/pallas_lbs.py:113"),
         "basic_chain": ("romp_tpu_torch/csrc/basic_chain.cu",
                         "romp_tpu/ops/pallas_fuse.py:134"),
         "deform_conv": ("romp_tpu_torch/csrc/deform_conv.cu",
@@ -1468,19 +1794,23 @@ def main():
     }
     kernels = []
     for name, (source, replaces) in meta.items():
-        # skinning: its largest main-path shape (N = 64 x 64); the chain:
+        # skinning: its largest main-path shape (N = 64 x 64); its
+        # backward: the train step's (N = 64 x 8); the chain:
         # the sum over the four branch shapes at B=2, one stage-4 module's
         # chains (PR 1's definition, so the numbers compare), its bf16
         # variant the same sum at B=64; the deforms: TRACE's shape, one
         # launch per clip
         timed = ([r for r in rows[name] if r["batch"] == 2]
                  if name == "basic_chain" else rows[name]
-                 if name == "basic_chain_bf16" else rows[name][-1:])
+                 if name == "basic_chain_bf16" else
+                 [r for r in rows[name] if r["shape"].startswith("N=512,")]
+                 if name == "skinning_bwd" else rows[name][-1:])
         by_path = {"romp": romp_launches[name],
                    "trace": trace_launches[name],
                    "trace+raft": raft_launches[name],
                    "bev": bev_launches[name],
                    **{p: c[name] for p, c in bf16_launches.items()},
+                   **{p: c[name] for p, c in train_launches.items()},
                    "serve": serve_launches[name]}
         device = [r["device_ms"] for r in timed]
         kernels.append(dict(

@@ -1,7 +1,8 @@
 """`romp` CLI of the port — image / video / webcam inference.
 
 Same flags and defaults as `romp_tpu/cli/romp.py`; only the device call
-changes. Imports nothing of the JAX package: the flags, the mode loops, the
+changes, and `--backbone resnet50` runs ROMP's ResNet-50 variant (a
+checkpoint of the training package; the JAX CLI is fixed at HRNet-W32). Imports nothing of the JAX package: the flags, the mode loops, the
 video tracker, image IO and the renderer are the port's own copies.
 `--GPU N` (default 0) runs on `cuda:N` and raises when that card does not
 exist; `--GPU -1` runs on the CPU.
@@ -33,6 +34,8 @@ def romp_settings(input_args=None):
     parser.add_argument("--model_path", type=str,
                         default=osp.join(DEFAULT_HOME, "ROMP.pkl"))
     parser.add_argument("--root_align", type=bool, default=False)
+    parser.add_argument("--backbone", type=str, default="hrnet32",
+                        choices=("hrnet32", "resnet50"))
     args = parser.parse_args(input_args)
     if args.show:
         args.render_mesh = True
@@ -54,8 +57,9 @@ class ROMP:
 
         self.settings = settings
         device = device_from_flag(settings.GPU)
-        params = load_checkpoint_flexible(settings.model_path,
-                                          init_romp_params)
+        params = load_checkpoint_flexible(
+            settings.model_path,
+            lambda g: init_romp_params(g, settings.backbone))
         assets = load_smpl_assets_flexible(settings.smpl_path, num_betas=10)
         self.smpl_faces = assets.faces
         cfg = RompConfig(
@@ -66,6 +70,7 @@ class ROMP:
             calc_smpl=settings.calc_smpl,
             transfer_dtype=settings.transfer_dtype,
             fetch_slots=settings.fetch_person,
+            backbone=settings.backbone,
         )
         self.pipeline = RompPipeline(params, SmplModel(assets, device), cfg,
                                      device)

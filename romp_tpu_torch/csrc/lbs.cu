@@ -45,6 +45,35 @@
 // - Grid (vertex tiles of 32 x warps, person tiles). The launch plan
 //   (warps per CTA, persons per CTA) comes from ops/lbs.py
 //   `skinning_plan`: the card is full at N = 64 (the CLI) and at 4096.
+//
+// The backward (skinning_bwd_tf32_kernel + skinning_bwd_reduce_kernel)
+// replaces romp_tpu/ops/pallas_lbs.py::_fused_skinning_bwd (XLA in JAX):
+// for the cotangent g (N, 3, V),
+//   dv[b, n, v] = sum_m T16[b, 4m+n, v] * g[b, m, v]            (n < 3)
+//   dA16[b, 4m+n, j] = sum_v g[b, m, v] * vh[b, n, v] * W[v, j]  (vh = [vpos; 1])
+// with rows 12-15 of dA16 zero. What bounds it: at N = 4096 it reads g and
+// v_posed and writes dv, 3 x 339 MB, 0.30 ms at 3.35 TB/s; its products
+// (T16's 16 rows and dA16's 12, (16 + 12) x 24 x 2 x V x N = 38 GFLOP)
+// three times over at 495 TFLOP/s take 0.23 ms, so bytes bind (chip_smoke.py
+// phase 3 reads both). Design: the forward's grid, launch plan, cp.async
+// ring (now carrying g's rows beside v_posed's) and split A16 fragments;
+// - dv: the forward's MMAs give a thread rows 4m+r of T16 (r = 0, 1 on
+//   even lanes, 2, 3 on odd ones) for its vertices; it sums them against
+//   g's three rows and stores dv rows 0 and 1 (even lanes) or row 2 (odd
+//   lanes). T16 stays in registers.
+// - dA16: per m group, a m16n8k8 product over the warp's 32 vertices with
+//   M = 16 rows (4 persons of the chunk x n = 0..3), A = g[m] * vh[n]
+//   formed from shared memory and split in registers, B = W (vertex x
+//   joint, 3 n tiles), split once per CTA in registers; three products.
+//   The warps' sums meet in shared memory and are added in a fixed order,
+//   one partial per vertex tile and person goes to device memory, and a
+//   second small kernel adds the tiles' partials in order: no float
+//   atomics, so the result does not depend on the schedule.
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3): 1.26 ms
+// of device time at N = 4096, 4.1x the bytes bound, 0.19 ms at the train
+// step's N = 512. A simple first design: 198 registers leave one CTA of 8
+// warps an SM, and each chunk of 4 persons meets in shared memory for
+// its dA16 sum, so latency is poorly hidden (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -307,6 +336,275 @@ skinning_tf32_kernel(const float* __restrict__ a16, const float* __restrict__ w,
   cp_wait<0>();
 }
 
+// ---------------------------------------------------------------- backward
+
+constexpr int kBwdStages = 3;          // ring depth of the backward
+constexpr int kDaFloats = kChunk * 12 * kJ;   // a chunk's dA16 rows 0-11
+
+__host__ __device__ constexpr int bwd_stage_floats(int vt) {
+  return kChunk * kARow + 2 * kChunk * 3 * (vt + 8);   // A16, vpos, g
+}
+
+int bwd_smem_bytes(int warps) {
+  return 2 * kFrag * 16 + kBwdStages * bwd_stage_floats(warps * kWarpVerts) * 4 +
+         warps * kDaFloats * 4;
+}
+
+__global__ void __launch_bounds__(kMaxWarps * 32, 1)
+skinning_bwd_tf32_kernel(const float* __restrict__ a16,
+                         const float* __restrict__ w,
+                         const float* __restrict__ vpos,
+                         const float* __restrict__ gin,
+                         float* __restrict__ dv_out,
+                         float* __restrict__ partial, int n, int v_count,
+                         int persons_per_cta) {
+  extern __shared__ float4 smem4[];
+  const int warps = blockDim.x / 32;
+  const int vt = warps * kWarpVerts;
+  const int vrow = vt + 8;
+  const int sfl = bwd_stage_floats(vt);
+  float4* frag = smem4;      // [2][kFrag]
+  float* stages = reinterpret_cast<float*>(smem4 + 2 * kFrag);
+  float* red = stages + kBwdStages * sfl;   // [warps][kDaFloats]
+  const int v0 = blockIdx.x * vt;
+  const int p_begin = blockIdx.y * persons_per_cta;
+  const int p_end = min(n, p_begin + persons_per_cta);
+  const int nchunks = (p_end - p_begin + kChunk - 1) / kChunk;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int vw = warp * kWarpVerts;   // the warp's first vertex in the tile
+
+  // W as the A operand of the T16 recompute (the forward's fragments)
+  uint32_t whi[2][3][4], wlo[2][3][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+    for (int ks = 0; ks < 3; ++ks) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int v = v0 + vw + mt * 16 + g + (r & 1) * 8;
+        const int j = ks * 8 + t + (r >> 1) * 4;
+        const float x = v < v_count ? __ldg(w + (size_t)v * kJ + j) : 0.f;
+        split(x, whi[mt][ks][r], wlo[mt][ks][r]);
+      }
+    }
+  }
+  // W as the B operand of dA16: b0 (k = vertex t, n = joint g), b1 (k t+4)
+  uint32_t wbhi[4][3][2], wblo[4][3][2];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+    for (int nt = 0; nt < 3; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int v = v0 + vw + ks * 8 + t + r * 4;
+        const float x =
+            v < v_count ? __ldg(w + (size_t)v * kJ + nt * 8 + g) : 0.f;
+        split(x, wbhi[ks][nt][r], wblo[ks][nt][r]);
+      }
+    }
+  }
+
+  auto load_chunk = [&](int c) {
+    float* st = stages + (c % kBwdStages) * sfl;
+    const int pc = p_begin + c * kChunk;
+    for (int i = threadIdx.x; i < kChunk * kARow / 4; i += blockDim.x) {
+      const int q = i / (kARow / 4);
+      const int e = (i - q * (kARow / 4)) * 4;
+      const bool ok = pc + q < p_end;
+      cp_async<16>(smem_addr(st + q * kARow + e),
+                   ok ? a16 + (size_t)(pc + q) * kAStride + e : a16,
+                   ok ? 16 : 0);
+    }
+    // rows 0-11: v_posed (person, coordinate); rows 12-23: g
+    for (int row = warp; row < 2 * kChunk * 3; row += warps) {
+      const int pr = row % (kChunk * 3);
+      const int p = pc + pr / 3;
+      const int nv = p < p_end ? min(vt, v_count - v0) : 0;
+      const float* src = (row < kChunk * 3 ? vpos : gin) +
+                         ((size_t)min(p, n - 1) * 3 + pr % 3) * v_count + v0;
+      float* dst = st + kChunk * kARow + row * vrow;
+      const uintptr_t al = reinterpret_cast<uintptr_t>(src);
+      if (al % 16 == 0) {
+        copy_row<4>(dst, src, nv, vt, lane);
+      } else if (al % 8 == 0) {
+        copy_row<2>(dst, src, nv, vt, lane);
+      } else {
+        copy_row<1>(dst, src, nv, vt, lane);
+      }
+    }
+  };
+
+  // the forward's split of A16 rows into B fragments
+  auto split_chunk = [&](int c) {
+    const float* ar = stages + (c % kBwdStages) * sfl;
+    float4* fr = frag + (c & 1) * kFrag;
+    for (int i = threadIdx.x; i < kFrag; i += blockDim.x) {
+      const int ln = i & 31;
+      const int ks = (i >> 5) % 3;
+      const int m = (i / 96) % 3;
+      const int q = i / 288;
+      const int gg = ln >> 2;
+      const float* src = ar + (2 * q + (gg >> 2)) * kARow +
+                         (4 * m + (gg & 3)) * kJ + ks * 8 + (ln & 3);
+      uint32_t h0, l0, h1, l1;
+      split(src[0], h0, l0);
+      split(src[4], h1, l1);
+      fr[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                          __uint_as_float(l0), __uint_as_float(l1));
+    }
+  };
+
+  auto compute_dv = [&](int c) {
+    const float4* fr = frag + (c & 1) * kFrag;
+    const float* st = stages + (c % kBwdStages) * sfl + kChunk * kARow;
+    const bool odd = t & 1;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int pl = 2 * q + (t >> 1);   // the person whose rows t holds
+      const int person = p_begin + c * kChunk + pl;
+      const float* gs = st + (kChunk * 3 + pl * 3) * vrow + vw;
+      float acc3[3][2][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < 3; ++ks) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m) {
+          const float4 b = fr[((q * 3 + m) * 3 + ks) * 32 + lane];
+          const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
+          const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            mma_tf32(acc3[m][mt], wlo[mt][ks], bh0, bh1);
+            mma_tf32(acc3[m][mt], whi[mt][ks], bl0, bl1);
+            mma_tf32(acc3[m][mt], whi[mt][ks], bh0, bh1);
+          }
+        }
+      }
+      if (person >= p_end) continue;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int vl = mt * 16 + g + 8 * h;
+          const int v = v0 + vw + vl;
+          if (v >= v_count) continue;
+          const float g0 = gs[vl], g1 = gs[vrow + vl], g2 = gs[2 * vrow + vl];
+          // rows r0 = 2 (t & 1) and r0 + 1 of T16 at this vertex
+          const float s0 = acc3[0][mt][2 * h] * g0 +
+                           acc3[1][mt][2 * h] * g1 + acc3[2][mt][2 * h] * g2;
+          float* dst = dv_out + (size_t)person * 3 * v_count + v;
+          if (odd) {
+            dst[2 * (size_t)v_count] = s0;     // row 3 is the translation
+          } else {
+            dst[0] = s0;
+            dst[v_count] = acc3[0][mt][2 * h + 1] * g0 +
+                           acc3[1][mt][2 * h + 1] * g1 +
+                           acc3[2][mt][2 * h + 1] * g2;
+          }
+        }
+      }
+    }
+  };
+
+  // dA16 of the chunk's 4 persons over the warp's 32 vertices, into red
+  auto compute_da = [&](int c) {
+    const float* st = stages + (c % kBwdStages) * sfl + kChunk * kARow;
+    float acc[3][3][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const int vl = vw + ks * 8 + t;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        // a0 (row g, k t), a1 (row g+8, k t), a2 (row g, k t+4), a3 (g+8,
+        // t+4); row = 4 * person + n, the value g[m] * vh[n]
+        uint32_t ahi[4], alo[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = g + (r & 1) * 8;
+          const int p = row >> 2, nn = row & 3;
+          const int k = vl + (r >> 1) * 4;
+          const float gv = st[(kChunk * 3 + p * 3 + m) * vrow + k];
+          const float vh = nn == 3 ? 1.f : st[(p * 3 + nn) * vrow + k];
+          split(gv * vh, ahi[r], alo[r]);
+        }
+#pragma unroll
+        for (int nt = 0; nt < 3; ++nt) {
+          mma_tf32(acc[m][nt], alo, wbhi[ks][nt][0], wbhi[ks][nt][1]);
+          mma_tf32(acc[m][nt], ahi, wblo[ks][nt][0], wblo[ks][nt][1]);
+          mma_tf32(acc[m][nt], ahi, wbhi[ks][nt][0], wbhi[ks][nt][1]);
+        }
+      }
+    }
+    // c0 (row g, col 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1);
+    // red[warp][person][4m + n][j]
+    float* rw = red + warp * kDaFloats;
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = g + (r >> 1) * 8;
+          const int j = nt * 8 + 2 * t + (r & 1);
+          rw[((row >> 2) * 12 + 4 * m + (row & 3)) * kJ + j] = acc[m][nt][r];
+        }
+      }
+    }
+  };
+
+  // one group committed per chunk slot, empty past the last chunk
+#pragma unroll
+  for (int c = 0; c < kBwdStages - 1; ++c) {
+    if (c < nchunks) load_chunk(c);
+    cp_commit();
+  }
+  cp_wait<kBwdStages - 2>();   // chunk 0 is in
+  __syncthreads();
+  split_chunk(0);
+  for (int c = 0; c < nchunks; ++c) {
+    cp_wait<kBwdStages - 3>();   // chunk c + 1 is in
+    // chunk c's fragments, chunk c + 1's stage and the last chunk's red
+    // reads are done; chunk c - 1's stage and fragments are free
+    __syncthreads();
+    if (c + kBwdStages - 1 < nchunks) load_chunk(c + kBwdStages - 1);
+    cp_commit();
+    if (c + 1 < nchunks) split_chunk(c + 1);
+    compute_dv(c);
+    compute_da(c);
+    __syncthreads();
+    // the warps' sums in warp order: this tile's partial of each person
+    const int pc = p_begin + c * kChunk;
+    for (int i = threadIdx.x; i < kDaFloats; i += blockDim.x) {
+      const int p = pc + i / (12 * kJ);
+      float s = 0.f;
+      for (int wi = 0; wi < warps; ++wi) s += red[wi * kDaFloats + i];
+      if (p < p_end) {
+        partial[((size_t)blockIdx.x * n + p) * (12 * kJ) + i % (12 * kJ)] = s;
+      }
+    }
+  }
+  cp_wait<0>();
+}
+
+// da16[b, r, j] = sum over the vertex tiles, in order, of partial[tile, b,
+// r, j] (r < 12); rows 12-15 zero
+__global__ void skinning_bwd_reduce_kernel(const float* __restrict__ partial,
+                                           float* __restrict__ da16, int n,
+                                           int tiles) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n * 16 * kJ) return;
+  const int b = i / (16 * kJ), e = i % (16 * kJ);
+  float s = 0.f;
+  if (e < 12 * kJ) {
+    for (int k = 0; k < tiles; ++k) {
+      s += partial[((size_t)k * n + b) * (12 * kJ) + e];
+    }
+  }
+  da16[i] = s;
+}
+
 }  // namespace
 
 // a16 (n, 16, j), w (v_count, j), vpos (n, 3, v_count) -> out (n, 3,
@@ -343,5 +641,46 @@ extern "C" int romp_skinning_f32(const float* a16, const float* w,
   }
   skinning_tf32_kernel<<<grid, warps * 32, smem, stream>>>(
       a16, w, vpos, out, n, v_count, persons);
+  return (int)cudaGetLastError();
+}
+
+// The backward: a16 (n, 16, j), w (v_count, j), vpos and g (n, 3, v_count)
+// -> dv (n, 3, v_count) and da16 (n, 16, j), through `partial` (tiles, n,
+// 12, j) scratch, tiles = ceil(v_count / (32 warps)); the launch plan is
+// the forward's. Same contract as romp_skinning_f32.
+extern "C" int romp_skinning_bwd_f32(const float* a16, const float* w,
+                                     const float* vpos, const float* g,
+                                     float* dv, float* partial, float* da16,
+                                     int n, int v_count, int j, int warps,
+                                     int persons, cudaStream_t stream) {
+  if (j != kJ || n <= 0 || v_count <= 0 || warps < 1 || warps > kMaxWarps ||
+      persons < kChunk || persons % kChunk != 0 ||
+      (n + persons - 1) / persons > 65535 ||
+      reinterpret_cast<uintptr_t>(a16) % 16 != 0 ||
+      bwd_smem_bytes(warps) > kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int vt = warps * kWarpVerts;
+  const int tiles = (v_count + vt - 1) / vt;
+  const dim3 grid(tiles, (n + persons - 1) / persons);
+  const int smem = bwd_smem_bytes(warps);
+  static int smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && (dev >= 64 || smem_set[dev] < smem)) {
+    err = cudaFuncSetAttribute(skinning_bwd_tf32_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  skinning_bwd_tf32_kernel<<<grid, warps * 32, smem, stream>>>(
+      a16, w, vpos, g, dv, partial, n, v_count, persons);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int total = n * 16 * kJ;
+  skinning_bwd_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
+      partial, da16, n, tiles);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,7 @@ channels (32, 64) / (32, 64, 128) / (32, 64, 128, 256). The depth knobs
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Callable, List, Sequence
 
 import torch
 import torch.nn as nn
@@ -23,6 +23,8 @@ STAGE2_CHANNELS = (32, 64)
 STAGE3_CHANNELS = (32, 64, 128)
 STAGE4_CHANNELS = (32, 64, 128, 256)
 BLOCKS_PER_BRANCH = 4
+# a forward segment: tensors in, a list of tensors out
+Segment = Callable[..., List[torch.Tensor]]
 
 
 class Branch(nn.ModuleList):
@@ -176,19 +178,34 @@ class HRNet(nn.Module):
                       blocks=blocks)
              for m in range(stage4_modules)])
 
+    def segments(self, opts: LayerOpts = F32) -> List[Segment]:
+        """The forward split at its stage boundaries (`hrnet.py:145-158`):
+        stem (convs and layer1), stage 2, stage 3, stage 4, each a function
+        of the previous one's list of branch tensors. Training wraps each in
+        `torch.utils.checkpoint` (`remat="stage"`)."""
+        def stem(x):
+            x = torch.relu(self.bn1(self.conv1(x, opts)))
+            x = torch.relu(self.bn2(self.conv2(x, opts)))
+            for block in self.layer1:
+                x = block(x, opts)
+            return [x]
+
+        def stage(transition, modules):
+            def run(*xs):
+                xs = transition(list(xs), opts)
+                for module in modules:
+                    xs = module(xs, opts)
+                return xs
+            return run
+
+        return [stem, stage(self.transition1, self.stage2),
+                stage(self.transition2, self.stage3),
+                stage(self.transition3, self.stage4)]
+
     def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
-        x = torch.relu(self.bn1(self.conv1(x, opts)))
-        x = torch.relu(self.bn2(self.conv2(x, opts)))
-        for block in self.layer1:
-            x = block(x, opts)
-        xs = self.transition1([x], opts)
-        for stage, transition in ((self.stage2, None),
-                                  (self.stage3, self.transition2),
-                                  (self.stage4, self.transition3)):
-            if transition is not None:
-                xs = transition(xs, opts)
-            for module in stage:
-                xs = module(xs, opts)
+        xs = [x]
+        for seg in self.segments(opts):
+            xs = seg(*xs)
         return xs[0]
 
 

@@ -1,4 +1,4 @@
-"""Layer modules of the port (inference subset of `romp_tpu/models/layers.py`).
+"""Layer modules of the port (counterpart of `romp_tpu/models/layers.py`).
 
 Module names follow the reference torch state_dict, which is also the JAX
 package's flat-dict naming (`layers.py:180-209`): a released checkpoint loads
@@ -34,17 +34,33 @@ The bf16 weights, biases and folded BN are cast once, by `cast_bf16(net)`
 after loading (a layer raises without them). JAX refuses a bf16 activation
 with f32 conv operands (`preferred_element_type` narrower than the input),
 and so does `LayerOpts`.
+
+Train mode (`net.train()`, the trainer's, `layers.py:110-120, 137-175`):
+- Conv2d on the mixed path rounds its output to bf16 too, as JAX's
+  train-mode conv emits the compute dtype and then upcasts (its inference
+  conv emits f32); the bias is added after, in f32;
+- BatchNorm takes its batch statistics in f32 as E[x^2] - E[x]^2,
+  normalizes with that (biased) variance, and records the momentum-0.1
+  running statistics (the unbiased variance) in the dict that
+  `record_bn_updates(net)` attached, never in place: the train step
+  commits them only when the gradients are finite. A recomputed forward
+  (`torch.utils.checkpoint`) finds its entries taken and records nothing.
+  Without an attached dict a train-mode BatchNorm is torch's, which
+  updates in place (the `calibrate_*batchnorm` helpers use that).
+bf16 activations are an inference mode: a bf16 BatchNorm raises in train
+mode.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1   # torch's convention: new = (1 - m) * old + m * batch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,6 +126,12 @@ def cast_bf16(net: nn.Module) -> nn.Module:
     return net
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x as f32, or as f64 if it is f64 (an f64 net: the reference for the
+    f32 path's own error)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def bf16_round(x: torch.Tensor) -> torch.Tensor:
     """Round to the nearest bf16 value (ties to even), keep float32."""
     return x.to(torch.bfloat16).float()
@@ -139,9 +161,47 @@ class Conv2d(_Bf16Cast, nn.Conv2d):
                 y = y + self._bf16("bias").view(-1, 1, 1)
             return y
         w = self.weight
-        if opts.compute_dtype == torch.bfloat16:
-            x, w = bf16_round(x), bf16_round(w)
-        return F.conv2d(x, w, self.bias, self.stride, self.padding)
+        if opts.compute_dtype != torch.bfloat16:
+            return F.conv2d(x, w, self.bias, self.stride, self.padding)
+        x, w = bf16_round(x), bf16_round(w)
+        if not self.training:
+            return F.conv2d(x, w, self.bias, self.stride, self.padding)
+        y = bf16_round(F.conv2d(x, w, None, self.stride, self.padding))
+        return y if self.bias is None else y + self.bias.view(-1, 1, 1)
+
+
+class ConvTranspose2d(_Bf16Cast, nn.ConvTranspose2d):
+    """Transposed conv, no bias (`layers.py:334-354`): torch's weight layout
+    (I, O, kh, kw), which the JAX package stores as HWOI. JAX's
+    conv_transpose has no `preferred_element_type`, so on the mixed path
+    its output is rounded to bf16 (inference and training alike); with bf16
+    activations it is the bf16 transposed conv's."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int = 4,
+                 stride: int = 2, torch_padding: int = 1):
+        super().__init__(in_ch, out_ch, kernel, stride, torch_padding,
+                         bias=False)
+
+    def cast_bf16(self) -> None:
+        self._set_bf16(weight=self.weight.to(torch.bfloat16))
+
+    def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
+        if opts.bf16_act:
+            return F.conv_transpose2d(x.to(torch.bfloat16),
+                                      self._bf16("weight"), None,
+                                      self.stride, self.padding)
+        if opts.compute_dtype != torch.bfloat16:
+            return F.conv_transpose2d(x, self.weight, None, self.stride,
+                                      self.padding)
+        return bf16_round(F.conv_transpose2d(
+            bf16_round(x), bf16_round(self.weight), None, self.stride,
+            self.padding))
+
+
+def max_pool2d(x: torch.Tensor, window: int, stride: int,
+               padding: int) -> torch.Tensor:
+    """Strided max pool with -inf padding (`layers.py:357-365`)."""
+    return F.max_pool2d(x, window, stride, padding)
 
 
 class _RoundedConv(_Bf16Cast):
@@ -197,15 +257,58 @@ class _FoldedBf16Norm(_Bf16Cast):
                        shift=(self.bias - self.running_mean * inv).to(
                            torch.bfloat16))
 
+    # set by `record_bn_updates`: (the step's dict, this module's name)
+    bn_updates = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype != torch.bfloat16:
+            if self.training and self.bn_updates is not None:
+                return self._train_forward(x)
             return super().forward(x)
         if self.training:
-            raise RuntimeError("bf16 activations are an inference mode: "
-                               "train-mode BatchNorm takes f32")
+            raise RuntimeError(
+                "bf16 activations are an inference mode: train-mode "
+                "BatchNorm takes f32 (training with bf16 activations is "
+                "ROADMAP queue 1 item 5, after BEV training)")
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return (x * self._bf16("scale").view(shape)
                 + self._bf16("shift").view(shape))
+
+    def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """JAX's train-mode batch_norm (`layers.py:137-175`): statistics and
+        output in f32 (in f64 for an f64 net)."""
+        updates, name = self.bn_updates
+        axes = [0, *range(2, x.dim())]
+        x32 = at_least_f32(x)
+        mean = x32.mean(axes)
+        var = (x32 * x32).mean(axes) - mean * mean    # biased
+        key = f"{name}.running_mean"
+        if key not in updates:   # a recomputed forward records nothing
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                unbiased = var * (n / max(n - 1, 1))
+                updates[key] = ((1 - BN_MOMENTUM) * self.running_mean
+                                + BN_MOMENTUM * mean)
+                updates[f"{name}.running_var"] = (
+                    (1 - BN_MOMENTUM) * self.running_var
+                    + BN_MOMENTUM * unbiased)
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        inv = torch.rsqrt(var + self.eps) * self.weight
+        return (x32 - mean.view(shape)) * inv.view(shape) + self.bias.view(
+            shape)
+
+
+def record_bn_updates(net: nn.Module, on: bool = True
+                      ) -> Dict[str, torch.Tensor]:
+    """Make every BatchNorm of `net` record its train-mode running-statistics
+    update, keyed by state-dict name, into the returned (fresh) dict instead
+    of updating in place; `on=False` detaches them again (torch's own
+    train-mode BatchNorm)."""
+    updates: Dict[str, torch.Tensor] = {}
+    for name, m in net.named_modules():
+        if isinstance(m, _FoldedBf16Norm):
+            m.bn_updates = (updates, name) if on else None
+    return updates
 
 
 class BatchNorm1d(_FoldedBf16Norm, nn.BatchNorm1d):

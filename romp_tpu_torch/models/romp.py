@@ -1,5 +1,5 @@
-"""ROMP network: HRNet-W32 backbone + CoordConv + three conv heads
-(counterpart of `romp_tpu/models/romp.py`).
+"""ROMP network: HRNet-W32 (or ResNet-50) backbone + CoordConv + three conv
+heads (counterpart of `romp_tpu/models/romp.py`).
 
 At 512x512 input the heads regress 64x64 maps: params (142 ch = 6D global
 orient + 21 x 6D body pose + 10 betas), center (1 ch) and cam (3 ch). The
@@ -7,22 +7,24 @@ packed params output is [cam(3) | pose6d(132) | betas(10)] = 145 ch.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
-from romp_tpu_torch.models.hrnet import Branch, hrnet32
+from romp_tpu_torch.models.hrnet import Branch, Segment, hrnet32
 from romp_tpu_torch.models.layers import (
-    F32, BasicBlock, Conv2d, LayerOpts, batch_norm, he_normal_,
+    F32, BasicBlock, Conv2d, ConvTranspose2d, LayerOpts, at_least_f32,
+    batch_norm, he_normal_,
 )
+from romp_tpu_torch.models.resnet import OUT_CHANNELS, ResNet50
 
 NUM_POSE_6D = 132          # 22 joints x 6D
 NUM_BETAS = 10
 NUM_PARAMS_MAP = NUM_POSE_6D + NUM_BETAS  # 142 (head); packed output adds cam
 NUM_CAM_MAP = 3
 HEAD_CHANNELS = 64
-BACKBONES = ("hrnet32", "hrnet32_tiny")
+BACKBONES = ("hrnet32", "hrnet32_tiny", "resnet50")
 
 
 def coord_maps(size: int, dtype=torch.float32,
@@ -67,10 +69,11 @@ class RompNet(nn.Module):
     def __init__(self, backbone: str = "hrnet32"):
         super().__init__()
         if backbone not in BACKBONES:
-            raise NotImplementedError(
-                f"backbone {backbone!r}: the port has {BACKBONES}")
-        self.backbone = hrnet32(backbone)
-        in_ch = 32 + 2
+            raise ValueError(f"unknown backbone {backbone!r}: {BACKBONES}")
+        if backbone == "resnet50":
+            self.backbone, in_ch = ResNet50(), OUT_CHANNELS + 2
+        else:
+            self.backbone, in_ch = hrnet32(backbone), 32 + 2
         self.final_layers = nn.ModuleList([
             nn.Identity(),     # index 0 holds no parameters, as the reference
             Head(in_ch, NUM_PARAMS_MAP),
@@ -83,6 +86,34 @@ class RompNet(nn.Module):
             if isinstance(m, Branch):
                 m.pack()
 
+    def segments(self, opts: LayerOpts = F32) -> List[Segment]:
+        """`romp_forward_segments` (`romp.py:104-126`): functions of the
+        previous segment's tensors. HRNet: normalize, stem, stages 2-4, the
+        heads; ResNet-50 (which normalizes itself): the backbone, the heads.
+        The first takes the image, the last returns (center_maps,
+        params_maps) channels-last."""
+        def heads(feat):
+            cm = coord_maps(feat.shape[2], feat.dtype, feat.device)
+            feat = torch.cat([feat, cm.expand(feat.shape[0], -1, -1, -1)],
+                             dim=1)
+            params_maps = self.final_layers[1](feat, opts)
+            center_maps = self.final_layers[2](feat, opts)
+            cam_maps = self.final_layers[3](feat, opts)
+            params_maps = torch.cat([cam_maps, params_maps], dim=1)
+            return [center_maps.permute(0, 2, 3, 1),
+                    params_maps.permute(0, 2, 3, 1)]
+
+        if isinstance(self.backbone, ResNet50):
+            return [lambda image: [self.backbone(image, opts)], heads]
+
+        def normalize(image):
+            x = ((at_least_f32(image) / 255.0) * 2.0 - 1.0).permute(
+                0, 3, 1, 2)
+            # NCHW memory: cuDNN keeps it, the kernel needs it
+            return [x.contiguous()]
+
+        return [normalize, *self.backbone.segments(opts), heads]
+
     def forward(self, image: torch.Tensor,
                 opts: LayerOpts = F32) -> Tuple[torch.Tensor, torch.Tensor]:
         """image: (B, S, S, 3) float RGB in [0, 255] (the JAX layout).
@@ -90,17 +121,10 @@ class RompNet(nn.Module):
         Returns (center_maps (B, S/8, S/8, 1), params_maps (B, S/8, S/8,
         145)), channels-last like the JAX package.
         """
-        x = ((image.float() / 255.0) * 2.0 - 1.0).permute(0, 3, 1, 2)
-        x = x.contiguous()   # NCHW memory: cuDNN keeps it, the kernel needs it
-        feat = self.backbone(x, opts)
-        cm = coord_maps(feat.shape[2], feat.dtype, feat.device)
-        feat = torch.cat([feat, cm.expand(feat.shape[0], -1, -1, -1)], dim=1)
-        params_maps = self.final_layers[1](feat, opts)
-        center_maps = self.final_layers[2](feat, opts)
-        cam_maps = self.final_layers[3](feat, opts)
-        params_maps = torch.cat([cam_maps, params_maps], dim=1)
-        return (center_maps.permute(0, 2, 3, 1),
-                params_maps.permute(0, 2, 3, 1))
+        xs = [image]
+        for seg in self.segments(opts):
+            xs = seg(*xs)
+        return xs[0], xs[1]
 
 
 def init_romp_params(generator: torch.Generator,
@@ -111,7 +135,7 @@ def init_romp_params(generator: torch.Generator,
     from JAX's (another generator); the distributions do not."""
     net = RompNet(backbone)
     for m in net.modules():
-        if isinstance(m, Conv2d):
+        if isinstance(m, (Conv2d, ConvTranspose2d)):
             he_normal_(m.weight, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)

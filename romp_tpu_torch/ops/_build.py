@@ -38,6 +38,7 @@ _I = ctypes.c_int
 # C entry points: name -> argtypes (every pointer and the stream as void*).
 SIGNATURES = {
     "romp_skinning_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "romp_skinning_bwd_f32": [_P] * 7 + [_I] * 5 + [_P],
     "romp_conv3x3_bn_act": [_P] * 8 + [_I] * 8 + [_P],
     "romp_basic_chain": [_P] * 9 + [_I] * 9 + [_P],
     "romp_basic_chain_bf16": [_P] * 10 + [_I] * 9 + [_P],

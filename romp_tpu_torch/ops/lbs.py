@@ -8,8 +8,18 @@ Counterpart of `romp_tpu/ops/pallas_lbs.py`. The kernel
 
 without ever writing the (B, 16, V) transform block, on the tensor cores
 in split TF32 (`tf32_round`, `split_tf32_matmul` model its arithmetic).
-`skinning_plan` picks the kernel's launch. Forward only: the analytic
-backward of `pallas_lbs.py:113-126` comes with the training slice.
+`skinning_plan` picks the kernel's launch.
+
+`skinning` is differentiable: its backward is the analytic one of
+`pallas_lbs.py:113-126` (`_fused_skinning_bwd`), for the cotangent g,
+
+    dv[b, n, v] = sum_m T16[b, 4m+n, v] * g[b, m, v]
+    dA16[b, 4m+n, j] = sum_v g[b, m, v] * vh[b, n, v] * W[v, j]
+
+with vh = [v_posed; 1], rows 12-15 of dA16 zero and no gradient for the
+lbs weights (JAX gives them a zero cotangent). On CUDA tensors it is a
+second kernel of `csrc/lbs.cu` (`skinning_backward`), which recomputes T16
+in registers as the forward does; `skinning_bwd_plain` is its twin.
 """
 from __future__ import annotations
 
@@ -109,27 +119,111 @@ def skinning_plain(a16: torch.Tensor, weights: torch.Tensor,
         for m in range(3)], dim=1)
 
 
+def skinning_bwd_plain(a16: torch.Tensor, weights: torch.Tensor,
+                       v_posed: torch.Tensor, g: torch.Tensor):
+    """Plain PyTorch backward of skinning (twin of `_fused_skinning_bwd`,
+    materializes T16): cotangent g (B, 3, V) -> (dA16 (B, 16, J), dv
+    (B, 3, V))."""
+    B, _, J = a16.shape
+    t16 = torch.einsum("bkj,vj->bkv", a16, weights)
+    dv = torch.stack([
+        sum(t16[:, 4 * m + n] * g[:, m] for m in range(3))
+        for n in range(3)], dim=1)
+    vh = torch.cat([v_posed, torch.ones_like(v_posed[:, :1])], dim=1)
+    da_mn = torch.einsum("bmv,bnv,vj->bmnj", g, vh, weights)   # (B, 3, 4, J)
+    da16 = torch.cat([da_mn.reshape(B, 12, J), da_mn.new_zeros((B, 4, J))],
+                     dim=1)
+    return da16, dv
+
+
+def _check_operands(what, a16, weights, v_posed, *more):
+    """The kernels' operand checks: f32, contiguous, on a16's CUDA device;
+    `more` are further (name, tensor) pairs of v_posed's shape."""
+    if a16.dim() != 3 or a16.device.type != "cuda":
+        raise ValueError(f"{what}: a16 must be a (B, 16, 24) CUDA tensor, "
+                         f"got {tuple(a16.shape)} on {a16.device}")
+    B, V = a16.shape[0], weights.shape[0]
+    for name, t, shape in (("a16", a16, (B, 16, 24)),
+                           ("weights", weights, (V, 24)),
+                           ("v_posed", v_posed, (B, 3, V)),
+                           *((n, t, (B, 3, V)) for n, t in more)):
+        _build.check_operand(what, name, t, torch.float32, shape, a16.device)
+    return B, V
+
+
+def skinning_backward(a16: torch.Tensor, weights: torch.Tensor,
+                      v_posed: torch.Tensor, g: torch.Tensor):
+    """The backward kernel (`csrc/lbs.cu` `romp_skinning_bwd_f32`) for CUDA
+    tensors, `skinning_bwd_plain` for CPU tensors: (dA16, dv). Its dA16 is
+    summed over vertex tiles in a second pass, in a fixed order: no float
+    atomics, so a step's result does not depend on the schedule.
+
+    `skinning_backward.launches` counts kernel launches (the pair of
+    kernels is one launch)."""
+    if a16.device.type == "cpu":
+        return skinning_bwd_plain(a16, weights, v_posed, g)
+    B, V = _check_operands("skinning_backward", a16, weights, v_posed,
+                           ("g", g))
+    da16 = torch.empty((B, 16, 24), dtype=torch.float32, device=a16.device)
+    dv = torch.empty((B, 3, V), dtype=torch.float32, device=a16.device)
+    if B == 0:
+        return da16, dv
+    if a16.data_ptr() % 16:
+        a16 = a16.clone()
+    plan = skinning_plan(B, V)
+    # dA16 partial sums, one per vertex tile
+    partial = torch.empty((plan.grid_v, B, 12, 24), dtype=torch.float32,
+                          device=a16.device)
+    lib = _build.load()
+    with torch.cuda.device(a16.device):
+        err = lib.romp_skinning_bwd_f32(
+            a16.data_ptr(), weights.data_ptr(), v_posed.data_ptr(),
+            g.data_ptr(), dv.data_ptr(), partial.data_ptr(), da16.data_ptr(),
+            B, V, 24, plan.warps, plan.persons,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "romp_skinning_bwd_f32")
+    skinning_backward.launches += 1
+    return da16, dv
+
+
+skinning_backward.launches = 0
+
+
+class _Skinning(torch.autograd.Function):
+    """skinning with the analytic backward (`pallas_lbs.py:99-129`)."""
+
+    @staticmethod
+    def forward(ctx, a16, weights, v_posed):
+        ctx.save_for_backward(a16, weights, v_posed)
+        return _skinning_forward(a16, weights, v_posed)
+
+    @staticmethod
+    def backward(ctx, g):
+        a16, weights, v_posed = ctx.saved_tensors
+        da16, dv = skinning_backward(a16, weights, v_posed, g.contiguous())
+        return da16, None, dv
+
+
 def skinning(a16: torch.Tensor, weights: torch.Tensor,
              v_posed: torch.Tensor) -> torch.Tensor:
     """Skinning: the CUDA kernel for CUDA tensors, `skinning_plain` for CPU
     tensors. a16: (B, 16, 24); weights: (V, 24); v_posed: (B, 3, V), f32.
-    The kernel is forward only: it raises under grad mode when an operand
-    requires grad.
+    Differentiable in a16 and v_posed (`skinning_backward`); the weights
+    get no gradient.
 
-    `skinning.launches` counts kernel launches.
+    `skinning.launches` counts forward kernel launches.
     """
+    if torch.is_grad_enabled() and (a16.requires_grad
+                                    or v_posed.requires_grad):
+        return _Skinning.apply(a16, weights, v_posed)
+    return _skinning_forward(a16, weights, v_posed)
+
+
+def _skinning_forward(a16: torch.Tensor, weights: torch.Tensor,
+                      v_posed: torch.Tensor) -> torch.Tensor:
     if a16.device.type == "cpu":
         return skinning_plain(a16, weights, v_posed)
-    if a16.dim() != 3 or a16.device.type != "cuda":
-        raise ValueError(f"skinning: a16 must be a (B, 16, 24) CUDA tensor, "
-                         f"got {tuple(a16.shape)} on {a16.device}")
-    _build.check_no_grad("skinning", a16, weights, v_posed)
-    B, V = a16.shape[0], weights.shape[0]
-    for name, t, shape in (("a16", a16, (B, 16, 24)),
-                           ("weights", weights, (V, 24)),
-                           ("v_posed", v_posed, (B, 3, V))):
-        _build.check_operand("skinning", name, t, torch.float32, shape,
-                             a16.device)
+    B, V = _check_operands("skinning", a16, weights, v_posed)
     out = torch.empty((B, 3, V), dtype=torch.float32, device=a16.device)
     if B == 0:
         return out

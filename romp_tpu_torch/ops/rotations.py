@@ -109,3 +109,24 @@ def rot6d_to_axis_angle(x: torch.Tensor) -> torch.Tensor:
     n_joint = x.shape[-1] // 6
     R = rot6d_to_matrix(x.reshape(*batch_shape, n_joint, 6))
     return matrix_to_axis_angle(R).reshape(*batch_shape, n_joint * 3)
+
+
+def quaternion_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """(..., 4) quaternion (w, x, y, z), normalized first -> (..., 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    w2, x2, y2, z2 = w * w, x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    rot = torch.stack([
+        w2 + x2 - y2 - z2, 2 * xy - 2 * wz, 2 * wy + 2 * xz,
+        2 * wz + 2 * xy, w2 - x2 + y2 - z2, 2 * yz - 2 * wx,
+        2 * xz - 2 * wy, 2 * wx + 2 * yz, w2 - x2 - y2 + z2,
+    ], dim=-1)
+    return rot.reshape(*q.shape[:-1], 3, 3)
+
+
+def matrix_to_rot6d(R: torch.Tensor) -> torch.Tensor:
+    """(..., 3, 3) -> (..., 6): the first two columns, flattened row-major
+    (the inverse of `rot6d_to_matrix`, for ground-truth encoding)."""
+    return R[..., :, :2].reshape(*R.shape[:-2], 6)

@@ -19,7 +19,6 @@ from romp_tpu_torch.models.bev import (
     BV_ROW_CH, BevNet, bev_forward_maps, bev_regress_params,
 )
 from romp_tpu_torch.models.layers import LayerOpts, cast_bf16, opts_from_names
-from romp_tpu_torch.models.romp import BACKBONES
 from romp_tpu_torch.ops.centermap import parse_centermap3d
 from romp_tpu_torch.ops.projection import perspective_projection
 from romp_tpu_torch.ops.rotations import rot6d_to_axis_angle
@@ -28,6 +27,8 @@ from romp_tpu_torch.smpl.body_model import SmplModel, smpla_forward
 
 TAN_FOV_HALF = float(np.tan(np.radians(30.0)))  # FOV 60 deg
 FOCAL_LENGTH_BEV = 443.4
+# BEV has no ResNet-50 option (`romp_tpu/models/bev.py:94-102`)
+BACKBONES = ("hrnet32", "hrnet32_tiny")
 
 
 @dataclasses.dataclass(frozen=True)

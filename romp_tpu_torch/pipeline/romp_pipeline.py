@@ -52,9 +52,7 @@ class RompConfig:
             raise ValueError(f"act_dtype {self.act_dtype!r}")
         self.opts     # JAX refuses bf16 activations of f32 conv operands
         if self.backbone not in BACKBONES:
-            raise NotImplementedError(
-                f"backbone={self.backbone!r}: the port has {BACKBONES} so far "
-                "(resnet50 is on the ROADMAP)")
+            raise ValueError(f"backbone={self.backbone!r}: {BACKBONES}")
 
     @property
     def opts(self) -> LayerOpts:

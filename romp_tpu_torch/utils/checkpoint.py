@@ -58,3 +58,50 @@ def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
     """The JAX package's native `.npz` flat dict (HWIO), bridged."""
     with np.load(path) as data:
         return state_dict_from_jax({k: data[k] for k in data.files})
+
+
+def train_state_from_jax(npz, cfg, device="cpu"):
+    """The JAX package's `save_train_state` archive (a path or a mapping of
+    arrays; `romp_tpu/train/trainer.py:34-44`) as the port's TrainState for
+    the TrainConfig `cfg`, on `device`.
+
+    The archive holds `p::<name>` parameters and `b::<name>` BatchNorm
+    statistics (JAX layouts), `step`, and optax's state leaves `o::<i>` in
+    its tree order: apply_if_finite's notfinite_count, last_finite and
+    total_notfinite; scale_by_adam's count, then mu and nu (each a dict,
+    in sorted key order); then the learning-rate schedule's count when the
+    config has a schedule."""
+    from romp_tpu_torch.models.romp import RompNet
+    from romp_tpu_torch.train.train_step import init_train_state
+
+    if isinstance(npz, str):
+        with np.load(npz) as data:
+            npz = {k: data[k] for k in data.files}
+    net = RompNet(cfg.backbone)
+    params = {k[3:]: v for k, v in npz.items() if k.startswith(("p::", "b::"))}
+    net.load_state_dict(state_dict_from_jax(params))
+    state = init_train_state(net.to(device), cfg)
+    names = state.names
+    leaves = [npz[f"o::{i}"] for i in range(len(
+        [k for k in npz if k.startswith("o::")]))]
+    opt = state.opt_state
+    has_schedule = opt.schedule_count is not None
+    if len(leaves) != 4 + 2 * len(names) + has_schedule:
+        raise ValueError(f"{len(leaves)} optimizer leaves for "
+                         f"{len(names)} parameters (schedule: {has_schedule})")
+
+    def scalar(a, dtype):
+        return torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
+
+    opt.notfinite_count = scalar(leaves[0], torch.int32)
+    opt.last_finite = scalar(leaves[1], torch.bool)
+    opt.total_notfinite = scalar(leaves[2], torch.int32)
+    opt.count = scalar(leaves[3], torch.int32)
+    for flat, part in ((opt.mu, leaves[4:4 + len(names)]),
+                       (opt.nu, leaves[4 + len(names):4 + 2 * len(names)])):
+        moments = state_dict_from_jax(dict(zip(names, part)))
+        flat.copy_(torch.cat([moments[k].reshape(-1) for k in names]))
+    if has_schedule:
+        opt.schedule_count = scalar(leaves[-1], torch.int32)
+    state.step = scalar(npz["step"], torch.int32)
+    return state

@@ -30,6 +30,7 @@ setup(
             "romp.convert_checkpoint=romp_tpu.tools.convert_checkpoint:main",
             "romp.serve=romp_tpu.serve:main",
             "romp_torch.serve=romp_tpu_torch.serve:main",
+            "romp_torch.train=romp_tpu_torch.train.launch:main",
         ],
     },
 )

@@ -133,19 +133,25 @@ def test_gpu_flag_never_falls_back_to_cpu():
 
 
 def test_port_runs_without_jax():
-    """With `import jax` and `import romp_tpu` made to fail, every module of
-    the port imports (`romp_tpu_torch.serve` among them), and the tiny ROMP
+    """With `import jax`, `import optax` and `import romp_tpu` made to fail,
+    every module of the port imports (`romp_tpu_torch.serve` and
+    `romp_tpu_torch.train` among them), and the tiny ROMP
     slice (directly and behind the port's server), the tiny TRACE slice
     with RAFT's flow and the tiny BEV slice run on the CPU."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         sys.modules["jax"] = None
+        sys.modules["optax"] = None
         sys.modules["romp_tpu"] = None
         import numpy as np, torch
         import romp_tpu_torch
         for m in pkgutil.walk_packages(romp_tpu_torch.__path__,
                                        "romp_tpu_torch."):
             importlib.import_module(m.name)
+        for name in ("train.launch", "train.trainer", "train.train_step",
+                     "train.data.loader", "models.resnet", "config",
+                     "utils.tensorboard"):
+            assert "romp_tpu_torch." + name in sys.modules, name
         from romp_tpu_torch.models.bev import init_bev_params
         from romp_tpu_torch.models.raft import (
             init_raft_params, make_trace_flow_fn)
@@ -215,7 +221,7 @@ def test_port_runs_without_jax():
         bout = bpipe(np.zeros((1, 64, 64, 3), np.uint8))
         assert bout["verts"].shape == (1, 4, 6890, 3), bout["verts"].shape
         assert all(torch.isfinite(v.float()).all() for v in bout.values())
-        assert not any(k.split(".")[0] in ("jax", "romp_tpu")
+        assert not any(k.split(".")[0] in ("jax", "optax", "romp_tpu")
                        for k, v in sys.modules.items() if v is not None)
         print("OK")
     """)
@@ -226,9 +232,11 @@ def test_port_runs_without_jax():
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
-    """No line of the port (its server included), nor of chip_smoke.py,
-    imports `romp_tpu` or `jax` (docstrings may name them)."""
-    pattern = re.compile(r"^\s*(from|import)\s+(romp_tpu|jax)(\.|\s|$)")
+    """No line of the port (its server and trainer included), nor of
+    chip_smoke.py, imports `romp_tpu`, `jax` or `optax` (docstrings may name
+    them)."""
+    pattern = re.compile(
+        r"^\s*(from|import)\s+(romp_tpu|jax|optax)(\.|\s|$)")
     files = [osp.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(osp.join(REPO, "romp_tpu_torch")):
         files += [osp.join(root, n) for n in names if n.endswith(".py")]
@@ -240,4 +248,5 @@ def test_port_sources_import_nothing_of_the_jax_package():
                     offenders.append(f"{osp.relpath(path, REPO)}:{i}: "
                                      f"{line.strip()}")
     assert osp.join(REPO, "romp_tpu_torch", "serve.py") in files
+    assert osp.join(REPO, "romp_tpu_torch", "train", "launch.py") in files
     assert len(files) > 20 and not offenders, offenders

@@ -10,7 +10,9 @@ from romp_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
 from romp_tpu_torch.ops.fused_chain import (
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain,
 )
-from romp_tpu_torch.ops.lbs import skinning, skinning_plain
+from romp_tpu_torch.ops.lbs import (
+    skinning, skinning_backward, skinning_bwd_plain, skinning_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -215,19 +217,16 @@ def test_bf16_kernels_reject_other_dtypes(dev):
 
 
 def test_kernel_wrappers_raise_under_grad(dev):
-    """The kernels are forward only: under grad mode with an operand that
-    requires grad each wrapper raises (its output would carry no graph);
-    under no_grad the same call runs."""
+    """The chain and deform kernels are forward only: under grad mode with
+    an operand that requires grad each wrapper raises (its output would
+    carry no graph); under no_grad the same call runs. (Skinning has its
+    backward kernel: the tests below.)"""
     g = torch.Generator().manual_seed(8)
-    a16 = torch.randn(2, 16, 24, generator=g).to(dev).requires_grad_()
-    lw = torch.rand(129, 24, generator=g).to(dev)
-    vpos = torch.randn(2, 3, 129, generator=g).to(dev)
     x = torch.randn(1, 16, 8, 8, generator=g).to(dev).requires_grad_()
     cw, sc, sh = _chain_operands(g, 1, 16, dev)
     dw = torch.randn(16, 16, 3, 3, generator=g).to(dev)
     off = torch.zeros(1, 8 * 18, 8, 8, device=dev)
-    calls = [lambda: skinning(a16, lw, vpos),
-             lambda: basic_chain(x, cw, sc, sh, 1),
+    calls = [lambda: basic_chain(x, cw, sc, sh, 1),
              lambda: basic_chain(x.detach().bfloat16().requires_grad_(), cw,
                                  sc, sh, 1),
              lambda: conv_pass(x, cw[0, 0], sc[0, 0], sh[0, 0]),
@@ -238,3 +237,58 @@ def test_kernel_wrappers_raise_under_grad(dev):
         with torch.no_grad():
             call()
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("N,V", [(1, 6890), (4, 6890), (37, 6890),
+                                 (512, 6890), (37, 129), (5, 1000)])
+def test_skinning_backward_kernel_matches_plain(dev, N, V):
+    """The backward kernel (dA16, dv) against `skinning_bwd_plain` on the
+    card: ragged person chunks (N = 1, 37, 5), ragged vertex tiles (V =
+    129, 1000) and the train step's N = 64 x 8 = 512. Bar 1e-4 of
+    max|ref|, the forward's; rows 12-15 of dA16 are zero; one launch."""
+    g = torch.Generator().manual_seed(N + V)
+    a16 = torch.randn(N, 16, 24, generator=g).to(dev)
+    w = torch.rand(V, 24, generator=g).to(dev)
+    w /= w.sum(1, keepdim=True)
+    vpos = torch.randn(N, 3, V, generator=g).to(dev)
+    cot = torch.randn(N, 3, V, generator=g).to(dev)
+    before = skinning_backward.launches
+    da, dv = skinning_backward(a16, w, vpos, cot)
+    torch.cuda.synchronize()
+    assert skinning_backward.launches == before + 1
+    ra, rv = skinning_bwd_plain(a16, w, vpos, cot)
+    assert _rel(da, ra) <= 1e-4 and _rel(dv, rv) <= 1e-4
+    assert not da[:, 12:].any()
+
+
+@pytest.mark.parametrize("N,V", [(2, 129), (4, 300)])
+def test_skinning_autograd_on_card_is_the_kernel_and_exact(dev, N, V):
+    """Autograd through `skinning` on CUDA runs both kernels; its gradient
+    matches autograd of `skinning_plain`, and a central difference of the
+    forward kernel (exact for this bilinear map up to f32 rounding) along a
+    random direction in (a16, v_posed): 1e-4 relative. The lbs weights get
+    no gradient."""
+    g = torch.Generator().manual_seed(V)
+    a16 = torch.randn(N, 16, 24, generator=g).to(dev).requires_grad_()
+    w = torch.rand(V, 24, generator=g).to(dev)
+    vpos = torch.randn(N, 3, V, generator=g).to(dev).requires_grad_()
+    cot = torch.randn(N, 3, V, generator=g).to(dev)
+    fwd, bwd = skinning.launches, skinning_backward.launches
+    out = skinning(a16, w, vpos)
+    (out * cot).sum().backward()
+    assert (skinning.launches, skinning_backward.launches) == (fwd + 1,
+                                                               bwd + 1)
+    a2, v2 = a16.detach().clone().requires_grad_(), vpos.detach().clone(
+    ).requires_grad_()
+    (skinning_plain(a2, w, v2) * cot).sum().backward()
+    assert _rel(a16.grad, a2.grad) <= 1e-4 and _rel(vpos.grad, v2.grad) <= 1e-4
+    da = torch.randn(N, 16, 24, generator=g).to(dev)
+    dvp = torch.randn(N, 3, V, generator=g).to(dev)
+    eps = 0.5
+    with torch.no_grad():
+        fd = ((skinning(a16 + eps * da, w, vpos + eps * dvp) * cot).sum()
+              - (skinning(a16 - eps * da, w, vpos - eps * dvp) * cot).sum()
+              ) / (2 * eps)
+    an = (a16.grad * da).sum() + (vpos.grad * dvp).sum()
+    assert abs(float(fd - an)) <= 1e-4 * float(
+        (a16.grad * da).abs().sum() + (vpos.grad * dvp).abs().sum())

@@ -82,7 +82,9 @@ def test_tiny_maps_f32_match_jax(tiny):
     (32, 64, 3, 2, False), (34, 64, 3, 2, True), (64, 145, 1, 1, True)])
 def test_mixed_conv_matches_jax(cin, cout, k, stride, bias):
     """The mixed-path conv is the JAX one: bf16 operands, exact products,
-    f32 sums and output (layers.py:125-130), within f32 summation order."""
+    f32 sums and output (layers.py:125-130), within f32 summation order.
+    Inference (eval mode): in train mode the output is rounded to bf16
+    too, as JAX's train-mode conv does (`test_torch_train_losses.py`)."""
     rng = np.random.RandomState(cin + cout + k)
     x = rng.randn(2, 16, 16, cin).astype(np.float32)
     params = {"c.weight": jnp.asarray(
@@ -92,7 +94,7 @@ def test_mixed_conv_matches_jax(cin, cout, k, stride, bias):
     ref = np.asarray(jlayers.conv2d(
         jlayers.ParamStore(params, compute_dtype=jnp.bfloat16), "c",
         jnp.asarray(x), cout, k, stride, bias=bias))
-    conv = Conv2d(cin, cout, k, stride, bias=bias)
+    conv = Conv2d(cin, cout, k, stride, bias=bias).eval()
     conv.load_state_dict({n[2:]: v for n, v in state_dict_from_jax(
         {n: np.asarray(v) for n, v in params.items()}).items()})
     with torch.inference_mode():
@@ -266,11 +268,13 @@ def test_compact_slots_matches_jax():
 
 
 def test_romp_config_refuses_settings_not_ported():
-    """resnet50 is not ported yet. bf16 activations are (act_dtype
-    bfloat16), but only with bf16 conv operands: JAX's conv refuses a bf16
-    result of f32 operands, and so does the port."""
-    with pytest.raises(NotImplementedError):
-        RompConfig(backbone="resnet50")
+    """An unknown backbone is refused (resnet50 is ported, with the training
+    slice). bf16 activations are (act_dtype bfloat16), but only with bf16
+    conv operands: JAX's conv refuses a bf16 result of f32 operands, and so
+    does the port."""
+    assert RompConfig(backbone="resnet50").backbone == "resnet50"
+    with pytest.raises(ValueError, match="backbone"):
+        RompConfig(backbone="resnet101")
     with pytest.raises(ValueError, match="compute_dtype"):
         RompConfig(compute_dtype="float32", act_dtype="bfloat16")
     with pytest.raises(TypeError, match="preferred_element_type"):

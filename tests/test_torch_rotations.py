@@ -40,6 +40,9 @@ def _rotations(seed):
     ("matrix_to_axis_angle", lambda: _rotations(3)),
     ("rot6d_to_axis_angle",
      lambda: np.random.RandomState(4).randn(16, 22 * 6).astype(np.float32)),
+    ("quaternion_to_matrix",
+     lambda: np.random.RandomState(6).randn(8, 16, 4).astype(np.float32)),
+    ("matrix_to_rot6d", lambda: _rotations(7).reshape(16, 16, 3, 3)),
 ])
 def test_rotation_matches_jax(name, make):
     ours, ref = _both(name, make())
