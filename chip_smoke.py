@@ -1,6 +1,6 @@
 """Drive the PyTorch + CUDA port (the ROMP and BEV image paths, the TRACE
-video path with and without RAFT's optical flow, serving, and ROMP's
-training) once on one GPU.
+video path with and without RAFT's optical flow, serving, and ROMP's and
+TRACE's training) once on one GPU.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     instructions (HMMA / HGMMA, by cuobjdump); the bf16 variants: the chain
     with bf16 in and out at batch 64 for the four branch shapes (beside the
     unfused bf16-activation branch) and the deform on bf16 features and
-    weights at TRACE's shape, each against its plain twin;
+    weights at TRACE's shape, each against its plain twin; the deform's
+    backward (dx, doffsets, dweight) at the train step's clip (10 frames)
+    and the inference batch (8), against its plain twin, with dweight's
+    run-to-run equality and dx's spread;
  4. slices, full width with seeded random weights and synthetic SMPL
     assets. ROMP: HRNet-W32 at 512x512 through the `ROMP` entry point on 4
     images and through `RompPipeline` at batch 16 in four configurations.
@@ -37,8 +40,12 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     512x512, batch 64 x 8 GT persons, the config's defaults: mixed path,
     remat "stage", AdamW): `Trainer.fit` for 8 steps on device-made
     batches, `launch.main` for 3 steps over a seeded 16-image pack, and
-    ResNet-50 for 3 steps. Each path's kernel launch counters are zeroed
-    just before it and read just after;
+    ResNet-50 for 3 steps. Then TRACE's training at the recipe
+    (configs/trace.yml: 6 clips x 10 frames, 16 tracks, f32): `launch.main`
+    for 3 steps over a seeded video pack (the frozen backbone from the
+    smoke ROMP weights, RAFT's flow from the smoke RAFT weights), and
+    `trace_train_step` for 8 steps on device-made batches. Each path's
+    kernel launch counters are zeroed just before it and read just after;
  5. card vs CPU: the same weights and inputs through the port on the CPU
     (plain versions) and on the card (kernels), f32 with TF32 off (ROMP,
     TRACE's head, RAFT on one 256x256 pair at 12 iterations, BEV's maps and
@@ -50,7 +57,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     against its plain twin and TRACE's deform against its plain twin, on
     the same inputs (ROMP and BEV at batch 1, TRACE on one 2-frame clip);
     then one f32 train step of the full-width HRNet-W32 at batch 2 and
-    256x256: losses, BatchNorm updates and every gradient;
+    256x256: losses, BatchNorm updates and every gradient; and one f32
+    TRACE train step at full width on 1 clip of 2 frames, likewise;
  serve: `romp_tpu_torch.serve`'s server (built as `main` builds it) on a
     free port: ROMP at full width, max_batch 8, --precompile, bf16
     activations; `run_batch` once under torch.cuda.set_sync_debug_mode
@@ -65,7 +73,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     batch-1 latency, unfused and fused; ROMP img/s at batch 64 with bf16
     activations, unfused and fused; training at the defaults: s a step,
     steps/s and img/s, peak memory, device busy / idle over 2 profiled
-    steps beside one forward, and the host syncs of one step.
+    steps beside one forward, and the host syncs of one step; TRACE's
+    train step at the recipe: s a step, clips/s and frames/s, peak memory,
+    device busy / idle and kernels over a profiled step, the deform
+    forward + backward's share, and one clip's peak.
 Then the kernels' JSON line, the card's name and power limit, and the
 result line.
 """
@@ -107,14 +118,16 @@ from romp_tpu_torch.models.raft import (  # noqa: E402
     Raft, init_raft_params, raft_forward,
 )
 from romp_tpu_torch.models.trace import (  # noqa: E402
-    DeformWarp, TraceNet, trace_forward_maps,
+    DeformWarp, TraceNet, init_trace_params, trace_cam_anchor,
+    trace_forward_maps,
 )
 from romp_tpu_torch.ops import _build  # noqa: E402
 from romp_tpu_torch.ops.centermap import (  # noqa: E402
     nms_heatmap, nms_heatmap3d, parse_centermap3d,
 )
 from romp_tpu_torch.ops.deform_conv import (  # noqa: E402
-    deform_conv2d, deform_conv2d_plain, deform_smem,
+    deform_conv2d, deform_conv2d_backward, deform_conv2d_bwd_plain,
+    deform_conv2d_plain, deform_smem,
 )
 from romp_tpu_torch.ops.fused_chain import (  # noqa: E402
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain, launch_plan,
@@ -140,9 +153,13 @@ from romp_tpu_torch.smpl.body_model import (  # noqa: E402
 )
 from romp_tpu_torch.config import load_config  # noqa: E402
 from romp_tpu_torch.train import launch as train_launch  # noqa: E402
+from romp_tpu_torch.train import trace_train_step as ttts  # noqa: E402
 from romp_tpu_torch.train import train_step as tts  # noqa: E402
 from romp_tpu_torch.train.data.dataset import (  # noqa: E402
     ImageAnnotation, save_pack,
+)
+from romp_tpu_torch.train.data.video_dataset import (  # noqa: E402
+    VideoSequence, save_video_pack, trans3d_to_czyx,
 )
 from romp_tpu_torch.train.priors import GmmPrior  # noqa: E402
 from romp_tpu_torch.train.trainer import Trainer  # noqa: E402
@@ -157,7 +174,7 @@ BF16_ACT = LayerOpts(compute_dtype=torch.bfloat16, act_dtype=torch.bfloat16)
 BF16_ACT_FUSED = dataclasses.replace(BF16_ACT, fuse_chains=True)
 # every kernel variant, as the kernels line names them
 KERNELS = ("skinning", "skinning_bwd", "basic_chain", "basic_chain_bf16",
-           "deform_conv", "deform_conv_bf16")
+           "deform_conv", "deform_conv_bf16", "deform_conv_bwd")
 BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))  # (C, H) at 512x512
 CHAIN_BATCHES = (1, 2, 64)   # batch-1 latency, PR 1's rows, offline batch
 SKIN_N = (64, 1024, 4096)   # batch x max_person: 1, 16 and 64 x 64
@@ -166,6 +183,9 @@ TRAIN_BATCH, TRAIN_PERSONS, TRAIN_STEPS = 64, 8, 8   # the config's defaults
 V = 6890
 DEFORM = dict(B=8, C=32, H=128, W=128, G=8, Cout=32)   # TRACE's warp
 TRACE_CLIP = 8
+# configs/trace.yml: clips a step, frames a clip, supervised tracks
+TRACE_TRAIN_CLIPS, TRACE_TRAIN_T, TRACE_TRAIN_N = 6, 10, 16
+TRACE_TRAIN_STEPS = 8
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -256,7 +276,7 @@ def device_ms(fn, launches, calls=20, tries=3):
 def reset_counts():
     """Every kernel wrapper's launch counter to 0."""
     skinning.launches = conv_pass.launches = deform_conv2d.launches = 0
-    skinning_backward.launches = 0
+    skinning_backward.launches = deform_conv2d_backward.launches = 0
     basic_chain.bf16_launches = deform_conv2d.bf16_launches = 0
 
 
@@ -269,7 +289,8 @@ def launch_counts():
             "basic_chain_bf16": basic_chain.bf16_launches,
             "deform_conv": (deform_conv2d.launches
                             - deform_conv2d.bf16_launches),
-            "deform_conv_bf16": deform_conv2d.bf16_launches}
+            "deform_conv_bf16": deform_conv2d.bf16_launches,
+            "deform_conv_bwd": deform_conv2d_backward.launches}
 
 
 def smi_line():
@@ -313,6 +334,9 @@ def phase_kernels(dev):
     rows["basic_chain_bf16"] = [chain_bf16_row(dev, g, 64, C, H)
                                 for C, H in BRANCHES]
     rows["deform_conv_bf16"] = [deform_bf16_row(dev, g)]
+    # the train step's clip (T = 10 frames) and the inference batch
+    rows["deform_conv_bwd"] = [deform_bwd_row(dev, g, B)
+                               for B in (TRACE_TRAIN_T, DEFORM["B"])]
     for name, shapes in rows.items():
         for row in shapes:
             phase(3, f"kernel {name}", **row)
@@ -580,6 +604,55 @@ def deform_row(dev, g):
                              "deform_conv_tf32_kernel": 1}),
         plain_ms=time_ms(lambda: deform_conv2d_plain(x, off, w, G), reps=10),
         **bounds)
+
+
+def deform_bwd_row(dev, g, B):
+    """The deform backward kernels at TRACE's shape (C = Cout = 32, 128 x
+    128, G = 8) for B frames, against `deform_conv2d_bwd_plain`: offsets
+    sigma 2 (samples cross the border), a random cotangent. Bar 1e-4 of
+    max|ref| for each of dx, doffsets and dweight (f32 sums in another
+    order); dweight and doffsets bit-equal over two runs (no float
+    atomics), dx's run-to-run spread (its scatter uses atomics)."""
+    C, H, W, G, Cout = (DEFORM[k] for k in ("C", "H", "W", "G", "Cout"))
+    x = torch.randn(B, C, H, W, generator=g).to(dev)
+    off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
+    w = (torch.randn(Cout, C, 3, 3, generator=g) * 0.1).to(dev)
+    gout = torch.randn(B, Cout, H, W, generator=g).to(dev)
+    got = deform_conv2d_backward(x, off, w, gout, G)
+    again = deform_conv2d_backward(x, off, w, gout, G)
+    ref = deform_conv2d_bwd_plain(x, off, w, gout, G)
+    torch.cuda.synchronize()
+    errs = {name: rel_err(a, r) for name, a, r in
+            zip(("dx", "doffsets", "dweight"), got, ref)}
+    check(max(errs.values()) <= 1e-4, f"deform backward B={B}: {errs}")
+    check(torch.equal(got[2], again[2]) and torch.equal(got[1], again[1]),
+          f"deform backward B={B}: dweight / doffsets differ run to run")
+    # x, offsets and gout read once, dx, doffsets (and the small dweight)
+    # written once; per (pixel, tap, channel) the two contractions with
+    # Cout (gcol, dweight: 2 FLOP each), and the bilinear blends and their
+    # differences (~22 FLOP). As for the forward, the products are timed
+    # at the card's rate for f32-accurate products (split TF32: three
+    # times over at the TF32 rate) whatever units the kernel itself uses
+    # (it runs them on the CUDA cores); `f32_` is the CUDA-core reading
+    products = B * H * W * 9 * C * Cout * 2
+    remainder = B * H * W * 9 * C * 22
+    nbytes = 4 * (2 * x.numel() + 2 * off.numel() + 2 * w.numel()
+                  + gout.numel())
+    call = lambda: deform_conv2d_backward(x, off, w, gout, G)  # noqa: E731
+    return dict(
+        shape=f"B={B},C={C},H=W={H},G={G},Cout={Cout}",
+        max_abs_err=float(max((a - r).abs().max() for a, r in zip(got, ref))),
+        rel_errs=errs, rel_err=max(errs.values()),
+        dweight_bit_equal=True,
+        dx_run_to_run_rel_spread=rel_err(again[0], got[0]),
+        ms=time_ms(call),
+        # pass A, pass B and the ordered reduction of pass B's partials
+        device_ms=device_ms(call, {"deform_bwd_input_kernel": 1,
+                                   "deform_bwd_weight_kernel": 1,
+                                   "deform_bwd_weight_reduce_kernel": 1}),
+        plain_ms=time_ms(lambda: deform_conv2d_bwd_plain(x, off, w, gout, G),
+                         reps=5),
+        **split_tf32_bounds(nbytes, 2 * products, remainder))
 
 
 def check_outputs(out, B, K):
@@ -1717,6 +1790,237 @@ def phase_train_time(dev, smi):
     return row
 
 
+def write_video_pack(root, n_seq=2, frames=12, size=512, subjects=3):
+    """A video pack (`save_video_pack`) of n_seq static-camera sequences of
+    seeded cv2 frames, each with `subjects` subjects (subject i appears at
+    frame i), their trajectories binned onto the 128 x 128 x 64 grid."""
+    import cv2
+
+    rng = np.random.RandomState(6)
+    (root / "data").mkdir(parents=True, exist_ok=True)
+    seqs = []
+    for s in range(n_seq):
+        paths = []
+        for f in range(frames):
+            path = root / f"s{s}_f{f:02d}.jpg"
+            cv2.imwrite(str(path), (rng.rand(size, size, 3) * 255).astype(
+                np.uint8))
+            paths.append(str(path))
+        subs = {}
+        for sid in range(subjects):
+            tr = np.stack([np.linspace(-0.5, 0.5, frames) * (1 + sid),
+                           np.full(frames, 0.2 * sid - 0.2),
+                           np.full(frames, 3.0 + 2 * sid)], -1).astype(
+                np.float32)
+            subs[sid] = {
+                "valid": np.arange(frames) >= sid,
+                "czyx": trans3d_to_czyx(tr, trace_cam_anchor(),
+                                        map_size=size // 4),
+                "trans3d": tr, "world_trans": tr,
+                "world_grot": (rng.randn(frames, 3) * 0.3).astype(
+                    np.float32),
+                "pose": (rng.randn(frames, 66) * 0.2).astype(np.float32),
+                "betas": (rng.randn(frames, 11) * 0.3).astype(np.float32)}
+        seqs.append(VideoSequence(paths, subs))
+    save_video_pack(str(root / "data" / "smoke_clips.npz"), seqs)
+
+
+TRACE_LOSSES = ("centermap3d", "motion", "pose", "shape", "world_trans",
+                "world_grot", "temp_shape", "total")
+
+
+def phase_trace_train(dev, raft_ckpt, backbone_ckpt):
+    """TRACE's video training at the recipe (configs/trace.yml: HRNet-W32
+    frozen backbone at 512x512, 128x128 maps, 6 clips of 10 frames a step,
+    16 tracks, f32, lr 3e-5): `launch.main` over a seeded
+    video pack of 2 sequences of 12 cv2 frames (frames read, dynamic-camera
+    augmentation, the frozen backbone's features from the smoke ROMP
+    weights, RAFT's flow from the smoke RAFT weights, all assembled by a
+    `PrefetchLoader` worker thread while the main thread steps, with TF32
+    held off in both for the run) for 3 steps; then
+    `trace_train_step` for TRACE_TRAIN_STEPS steps on device-made batches,
+    each ended by a device barrier (its times are phase 6's). Each step
+    finite, the loss moving, the deform's forward and backward kernels
+    launched for every clip of every step. Counters zeroed before each run
+    and read after it. Returns the launches per path and what phase 6
+    reads."""
+    by_path, out = {}, {}
+    cfg = load_config("configs/trace.yml")
+    check((cfg.model.version, cfg.train.batch_size, cfg.trace.clip_length,
+           cfg.trace.max_tracks, cfg.model.input_size,
+           cfg.train.compute_dtype, cfg.train.lr,
+           cfg.trace.use_optical_flow) == (
+              "trace", TRACE_TRAIN_CLIPS, TRACE_TRAIN_T, TRACE_TRAIN_N, 512,
+              "float32", 3e-5, True), "the TRACE recipe moved")
+    root = _build.BUILD_DIR / "smoke_trace_pack"
+    write_video_pack(root)
+    ck = _build.BUILD_DIR / "smoke_trace_launch"
+    log = ck / "trace_train_log.jsonl"
+    if log.exists():
+        log.unlink()
+    reset_counts()
+    t0 = time.perf_counter()
+    check(train_launch.main(
+        ["--config", "configs/trace.yml", "--data_root", str(root / "data"),
+         "--max_steps", "3", "--GPU", str(dev.index or 0),
+         "data.datasets=smoke_clips", f"train.checkpoint_dir={ck}",
+         "train.log_every=1", "train.num_workers=1",
+         f"trace.raft_model_path={raft_ckpt}",
+         f"trace.backbone_ckpt={backbone_ckpt}"]) == 0, "launch.main trace")
+    torch.cuda.synchronize()
+    by_path["trace-train"] = n = launch_counts()
+    logged = [json.loads(line) for line in log.read_text().splitlines()]
+    check([r["step"] for r in logged] == [1, 2, 3]
+          and all(np.isfinite(r[k]) for r in logged for k in TRACE_LOSSES),
+          f"trace launch.main log {logged}")
+    check((ck / "trace_last.npz").exists(), "trace_last.npz not written")
+    per_run = 3 * TRACE_TRAIN_CLIPS
+    check(n["deform_conv_bwd"] == per_run and n["deform_conv"] >= per_run,
+          f"trace launch.main launches {n}")
+    out["launch"] = dict(seconds=time.perf_counter() - t0, log=logged[-1],
+                         launches=n)
+
+    tcfg = train_launch.trace_train_config(cfg)
+    head = TraceNet(None)
+    head.load_state_dict(init_trace_params(torch.Generator().manual_seed(0),
+                                           backbone=None))
+    state = ttts.trace_init_train_state(head.to(dev), tcfg)
+    batches = [ttts.make_trace_synthetic_batch(
+        200 + i, TRACE_TRAIN_CLIPS, TRACE_TRAIN_N, TRACE_TRAIN_T, 128, dev)
+        for i in range(TRACE_TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    times, totals = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        _, m = ttts.trace_train_step(state, b, tcfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        totals.append(m["total"])
+    by_path["trace-train-step"] = n = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    totals = [float(t) for t in totals]
+    check(all(np.isfinite(totals)) and len(set(totals)) > 1,
+          f"trace_train_step totals {totals}")
+    per_run = TRACE_TRAIN_STEPS * TRACE_TRAIN_CLIPS
+    check(n["deform_conv_bwd"] == per_run and n["deform_conv"] >= per_run,
+          f"trace_train_step launches {n}")
+    out["step"] = dict(steps=TRACE_TRAIN_STEPS, total=totals,
+                       seconds=sum(times), launches=n)
+    phase(4, "slice", path="trace-train", **out)
+    return by_path, dict(state=state, cfg=tcfg, batch=batches[0],
+                         times=times, peak=peak)
+
+
+def trace_train_grads(net, batch, cfg):
+    """One TRACE step's losses, gradients (by name) and BatchNorm
+    updates."""
+    net.train()
+    total, (bn, metrics) = ttts.trace_compute_losses(net, batch, cfg)
+    params = dict(net.named_parameters())
+    names = sorted(params)
+    grads = torch.autograd.grad(total, [params[k] for k in names],
+                                allow_unused=True)
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {k: g.cpu() for k, g in zip(names, grads) if g is not None},
+            {k: v.cpu() for k, v in bn.items()})
+
+
+def phase_trace_train_card_vs_cpu(dev):
+    """One f32 TRACE train step at full width (128x128 maps, 64 depth
+    bins, 16 tracks) on 1 clip of 2 frames: the same seeded head and batch
+    on the card (the deform's forward and backward kernels, TF32 off) and
+    on the CPU in f32 (plain versions), and on the CPU in f64 as the
+    reference. As ROMP's step, this one is ill-conditioned at random
+    weights (train-mode BatchNorm over 2 frames), so the card's f32 step
+    is held to be as exact as the CPU's: against f64, its median and its
+    worst gradient error at most 2x the CPU's; the losses and the
+    BatchNorm updates within 1e-3 relative."""
+    sd = init_trace_params(torch.Generator().manual_seed(4), backbone=None)
+    batch = ttts.make_trace_synthetic_batch(4, 1, TRACE_TRAIN_N, 2, 128,
+                                            "cpu")
+    cfg = ttts.TraceTrainConfig()
+    results = {}
+    t0 = time.perf_counter()
+    for where, d, dt in (("f64", torch.device("cpu"), torch.float64),
+                         ("cpu", torch.device("cpu"), torch.float32),
+                         ("card", dev, torch.float32)):
+        net = TraceNet(None)
+        net.load_state_dict(sd)
+        b = {k: v.to(d, dt) if v.is_floating_point() else v.to(d)
+             for k, v in batch.items()}
+        with (precision_flags(cfg) if d.type == "cuda"
+              else contextlib.nullcontext()):
+            results[where] = trace_train_grads(net.to(d, dt), b, cfg)
+    (lr, gr, ur), (lc, gc, uc), (lg, gg, ug) = (
+        results["f64"], results["cpu"], results["card"])
+    loss_err = {k: abs(lg[k] - v) / max(abs(v), 1e-3) for k, v in lr.items()}
+    bn_err = max(rel_err(ug[k], v) for k, v in ur.items())
+    gmax = max(float(v.abs().max()) for v in gr.values())
+    card, cpu = {}, {}
+    for k, ref in gr.items():
+        if float(ref.abs().max()) > 1e-6 * gmax:   # not exactly-zero ones
+            card[k] = rel_err(gg.get(k, torch.zeros_like(ref)), ref)
+            cpu[k] = rel_err(gc.get(k, torch.zeros_like(ref)), ref)
+    worst = sorted(card, key=card.get)[-5:]
+    row = dict(loss_rel_errs_vs_f64=loss_err, bn_update_rel_err_vs_f64=bn_err,
+               grads=len(card),
+               grad_rel_err_vs_f64_median={
+                   "card": statistics.median(card.values()),
+                   "cpu": statistics.median(cpu.values())},
+               grad_rel_err_vs_f64_max={"card": max(card.values()),
+                                        "cpu": max(cpu.values())},
+               worst_card={k: (card[k], cpu[k]) for k in worst},
+               seconds=time.perf_counter() - t0)
+    phase(5, "card vs cpu", path="trace-train", **row)
+    check(max(loss_err.values()) <= 1e-3 and bn_err <= 1e-3,
+          f"trace train card vs f64: losses {loss_err}, BN {bn_err}")
+    check(row["grad_rel_err_vs_f64_median"]["card"]
+          <= 2 * row["grad_rel_err_vs_f64_median"]["cpu"]
+          and row["grad_rel_err_vs_f64_max"]["card"]
+          <= 2 * row["grad_rel_err_vs_f64_max"]["cpu"],
+          f"trace train card vs f64: gradients {row}")
+
+
+def phase_trace_train_time(dev, ctx, smi):
+    """TRACE's step at the recipe (6 clips x 10 frames, 16 tracks, 128x128
+    maps, f32, each clip recomputed in the backward): seconds a step over
+    the TRACE_TRAIN_STEPS
+    steps of phase 4 (host clock, each ended by a device barrier; the
+    median of steps 3-8), clips/s and frames/s, peak device memory; one
+    profiled step: device busy / idle share, kernels a step, busy ms by
+    kind and the deform forward + backward's share of the busy time; and
+    the peak of one clip's step (its activations, all held during its
+    backward: why the recipe's 6 clips are recomputed one at a time)."""
+    state, cfg, batch, times = (ctx[k] for k in ("state", "cfg", "batch",
+                                                 "times"))
+    sec = statistics.median(times[2:])
+    prof, _ = device_profile(lambda: ttts.trace_train_step(state, batch, cfg),
+                             1, 0)
+    kinds = prof["busy_ms_per_call_by_kind"]
+    deform_ms = (kinds.get("deform kernel", 0.0)
+                 + kinds.get("deform backward kernel", 0.0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ttts.trace_train_step(state, {k: v[:1] for k, v in batch.items()}, cfg)
+    torch.cuda.synchronize()
+    clip_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    row = dict(path="trace-train", clips=TRACE_TRAIN_CLIPS,
+               frames_per_clip=TRACE_TRAIN_T, tracks=TRACE_TRAIN_N,
+               compute_dtype=cfg.compute_dtype,
+               step_s=times, median_step_s=sec,
+               clips_per_s=TRACE_TRAIN_CLIPS / sec,
+               frames_per_s=TRACE_TRAIN_CLIPS * TRACE_TRAIN_T / sec,
+               peak_memory_gb=ctx["peak"] / 1e9, step_profile=prof,
+               deform_fwd_bwd_ms=deform_ms,
+               deform_fwd_bwd_share=deform_ms
+               / prof["device_busy_ms_per_call"],
+               one_clip_peak_gb=clip_peak, card=smi)
+    phase(6, "time", **row)
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run "
@@ -1764,12 +2068,15 @@ def main():
     bf16_launches = phase_bf16_slices(dev, params, assets, images16,
                                       bev_params, adult, baby, trace_ckpt)
     train_launches = phase_train(dev)
+    trace_train_launches, trace_train_ctx = phase_trace_train(
+        dev, raft_ckpt, _build.BUILD_DIR / "smoke_weights.pth")
     phase_card_vs_cpu(dev, params, assets)
     phase_trace_card_vs_cpu(dev, trace_params)
     phase_raft_card_vs_cpu(dev)
     phase_bev_card_vs_cpu(dev, bev_params)
     phase_bf16_card_vs_cpu(dev, params, bev_params, trace_params)
     phase_train_card_vs_cpu(dev)
+    phase_trace_train_card_vs_cpu(dev)
     serve_launches = phase_serve(dev, _build.BUILD_DIR / "smoke_weights.pth",
                                  _build.BUILD_DIR / "smoke_bev_weights.pth",
                                  smi)
@@ -1777,6 +2084,8 @@ def main():
     phase_trace_time(dev, trace_ckpt, raft_ckpt, smi)
     phase_bev_time(dev, bev_params, adult, baby, smi)
     phase_train_time(dev, smi)
+    phase_trace_train_time(dev, trace_train_ctx, smi)
+    del trace_train_ctx
 
     meta = {
         "skinning": ("romp_tpu_torch/csrc/lbs.cu",
@@ -1791,6 +2100,8 @@ def main():
                              "romp_tpu/ops/pallas_fuse.py:134"),
         "deform_conv_bf16": ("romp_tpu_torch/csrc/deform_conv.cu",
                              "romp_tpu/ops/pallas_deform.py:103"),
+        "deform_conv_bwd": ("romp_tpu_torch/csrc/deform_conv.cu",
+                            "romp_tpu/ops/pallas_deform.py:178"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -1799,18 +2110,21 @@ def main():
         # the sum over the four branch shapes at B=2, one stage-4 module's
         # chains (PR 1's definition, so the numbers compare), its bf16
         # variant the same sum at B=64; the deforms: TRACE's shape, one
-        # launch per clip
+        # launch per clip; the deform backward: the train step's clip
+        # (T = 10), one launch per clip
         timed = ([r for r in rows[name] if r["batch"] == 2]
                  if name == "basic_chain" else rows[name]
                  if name == "basic_chain_bf16" else
                  [r for r in rows[name] if r["shape"].startswith("N=512,")]
-                 if name == "skinning_bwd" else rows[name][-1:])
+                 if name == "skinning_bwd" else rows[name][:1]
+                 if name == "deform_conv_bwd" else rows[name][-1:])
         by_path = {"romp": romp_launches[name],
                    "trace": trace_launches[name],
                    "trace+raft": raft_launches[name],
                    "bev": bev_launches[name],
                    **{p: c[name] for p, c in bf16_launches.items()},
                    **{p: c[name] for p, c in train_launches.items()},
+                   **{p: c[name] for p, c in trace_train_launches.items()},
                    "serve": serve_launches[name]}
         device = [r["device_ms"] for r in timed]
         kernels.append(dict(

@@ -767,6 +767,248 @@ int launch_bf16(const ArgsBf16& a, dim3 grid, size_t smem,
   return (int)cudaGetLastError();
 }
 
+// ------------------------------------------------------------ backward --
+//
+// The backward of the f32 deform (romp_deform_conv2d_bwd_f32). Replaces
+// romp_tpu/ops/pallas_deform.py::_fast_bwd, the VJP of the XLA
+// deform_conv2d (romp_tpu/ops/deform_conv.py:43). With S[b, ci, k, p] the
+// bilinear sample of channel ci at tap k (zero outside, each corner checked
+// on its own) and gcol[b, ci, k, p] = sum_o W[o, ci, k] * gout[b, o, p]:
+//   dx[b, ci, corner] += w_corner * gcol            (a scatter)
+//   doff[b, (g*9 + k)*2 + {0: dy, 1: dx}, p] = sum_{c of g} gcol * dS/d{y,x}
+//   dW[o, ci, k] = sum_{b, p} gout[b, o, p] * S[b, ci, k, p]
+// dS/dy is the difference of the two rows' corner values, blended by the x
+// weights, and dS/dx the other way round; floor has no gradient, as in
+// JAX's one-hot formulation.
+//
+// What bounds it, at the train step's clip (B = T = 10, C = Cout = 32,
+// 128 x 128, G = 8): x 21.0 MB, offsets 94.4 MB and gout 21.0 MB read,
+// dx 21.0 MB and doffsets 94.4 MB written, 252 MB: 0.075 ms at 3.35 TB/s.
+// The two contractions (gcol and dW) are 3.0 GFLOP each: 0.090 ms on the
+// CUDA cores in f32, as this kernel does them, so operations bind; on the
+// tensor cores in split TF32 they would take 0.037 ms and bytes would bind.
+//
+// Design (a simple kernel first; no tensor cores):
+// - pass A (deform_bwd_input_kernel): one thread per (b, tap, pixel). A
+//   CTA's 256 pixels share b and the tap; gout[b, :, pixels] and W[:, :,
+//   tap] sit in shared memory. For each group the thread forms gcol of the
+//   group's channels one at a time, gathers the four corners from x (NCHW),
+//   accumulates the group's two offset gradients (each owned by one thread:
+//   no atomics, one store each) and scatters dx with atomicAdd, as mmcv's
+//   CUDA kernel does (a scatter from arbitrary offsets has no gather form).
+//   dx's sums therefore come in no fixed order: its last bits vary from
+//   run to run.
+// - pass B (deform_bwd_weight_kernel): a CTA takes 32 output x 32 input
+//   channels (all of them at TRACE's shape) over kBwdSub x 128 pixels of
+//   one frame. Per 128 pixels it stages gout (32 x 128) in shared memory
+//   and, tap by tap, the samples S (128 pixels x 32 channels, XOR-swizzled
+//   rows); each thread accumulates a 1 x 4 block of dW for all nine taps in
+//   registers, and the CTA writes its partial sums.
+//   deform_bwd_weight_reduce_kernel adds the tiles' partials in a fixed
+//   order: no float atomics, so dW is bit-equal from run to run.
+constexpr int kBwdPix = 256;              // pass A: pixels per CTA
+constexpr int kBwdSub = 8;                // pass B: 128-pixel sub-tiles
+constexpr int kBwdTile = kBwdSub * 128;   // pass B: pixels per CTA
+
+// A sample's corners for the backward: clamped indices, the fractions and
+// their complements, and each corner's inside flag.
+struct GradCorners {
+  int i00, i01, i10, i11;
+  float ly, lx, hy, hx;
+  bool v00, v01, v10, v11;
+};
+
+__device__ __forceinline__ GradCorners grad_corners(float ys, float xs,
+                                                    int H, int W) {
+  // as in corners(): a far-outside sample keeps all four corners outside,
+  // so its gradients stay zero
+  ys = fminf(fmaxf(ys, -2.f), (float)H + 1.f);
+  xs = fminf(fmaxf(xs, -2.f), (float)W + 1.f);
+  const float y0f = floorf(ys), x0f = floorf(xs);
+  GradCorners r;
+  r.ly = ys - y0f;
+  r.lx = xs - x0f;
+  r.hy = 1.f - r.ly;
+  r.hx = 1.f - r.lx;
+  const int y0 = (int)y0f, x0 = (int)x0f;
+  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
+  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
+  r.v00 = vy0 && vx0;
+  r.v01 = vy0 && vx1;
+  r.v10 = vy1 && vx0;
+  r.v11 = vy1 && vx1;
+  const int yc0 = min(max(y0, 0), H - 1), yc1 = min(max(y0 + 1, 0), H - 1);
+  const int xc0 = min(max(x0, 0), W - 1), xc1 = min(max(x0 + 1, 0), W - 1);
+  r.i00 = yc0 * W + xc0;
+  r.i01 = yc0 * W + xc1;
+  r.i10 = yc1 * W + xc0;
+  r.i11 = yc1 * W + xc1;
+  return r;
+}
+
+size_t bwd_input_smem(int C, int cout) {
+  return (size_t)cout * (kBwdPix + C) * 4;
+}
+
+// pass A: grid (ceil(HW / 256), B * 9); dx zeroed before
+__global__ void __launch_bounds__(kBwdPix)
+deform_bwd_input_kernel(const float* __restrict__ x,
+                        const float* __restrict__ off,
+                        const float* __restrict__ w,
+                        const float* __restrict__ gout,
+                        float* __restrict__ dx, float* __restrict__ doff,
+                        int C, int H, int W, int G, int cout, int pad) {
+  extern __shared__ float bsm[];
+  float* gs = bsm;                       // [cout][kBwdPix]
+  float* ws = bsm + cout * kBwdPix;      // [cout][C] at this tap
+  const int HW = H * W;
+  const int b = blockIdx.y / kTaps, k = blockIdx.y % kTaps;
+  const int p0 = blockIdx.x * kBwdPix;
+  const int tid = threadIdx.x;
+  const float* gb = gout + (size_t)b * cout * HW;
+  for (int i = tid; i < cout * kBwdPix; i += kBwdPix) {
+    const int o = i / kBwdPix, q = p0 + i % kBwdPix;
+    gs[i] = q < HW ? __ldg(gb + (size_t)o * HW + q) : 0.f;
+  }
+  for (int i = tid; i < cout * C; i += kBwdPix) {
+    ws[i] = __ldg(w + (size_t)i * kTaps + k);
+  }
+  __syncthreads();
+  const int p = p0 + tid;
+  if (p >= HW) return;
+  const int Cg = C / G;
+  const float yb = (float)(p / W + k / 3 - pad);
+  const float xb = (float)(p % W + k % 3 - pad);
+  const size_t off_b = (size_t)b * G * 2 * kTaps * HW + p;
+  const float* xbat = x + (size_t)b * C * HW;
+  float* dxbat = dx + (size_t)b * C * HW;
+  for (int g = 0; g < G; ++g) {
+    const size_t ch = (size_t)(g * kTaps + k) * 2;
+    const GradCorners r =
+        grad_corners(yb + __ldg(off + off_b + ch * HW),
+                     xb + __ldg(off + off_b + (ch + 1) * HW), H, W);
+    float dly = 0.f, dlx = 0.f;
+    for (int c = 0; c < Cg; ++c) {
+      const int ci = g * Cg + c;
+      float gc = 0.f;
+#pragma unroll 8
+      for (int o = 0; o < cout; ++o) {
+        gc += ws[o * C + ci] * gs[o * kBwdPix + tid];
+      }
+      const float* xc = xbat + (size_t)ci * HW;
+      const float v00 = r.v00 ? __ldg(xc + r.i00) : 0.f;
+      const float v01 = r.v01 ? __ldg(xc + r.i01) : 0.f;
+      const float v10 = r.v10 ? __ldg(xc + r.i10) : 0.f;
+      const float v11 = r.v11 ? __ldg(xc + r.i11) : 0.f;
+      dly += gc * (r.hx * (v10 - v00) + r.lx * (v11 - v01));
+      dlx += gc * (r.hy * (v01 - v00) + r.ly * (v11 - v10));
+      float* dxc = dxbat + (size_t)ci * HW;
+      if (r.v00) atomicAdd(dxc + r.i00, r.hy * r.hx * gc);
+      if (r.v01) atomicAdd(dxc + r.i01, r.hy * r.lx * gc);
+      if (r.v10) atomicAdd(dxc + r.i10, r.ly * r.hx * gc);
+      if (r.v11) atomicAdd(dxc + r.i11, r.ly * r.lx * gc);
+    }
+    doff[off_b + ch * HW] = dly;
+    doff[off_b + (ch + 1) * HW] = dlx;
+  }
+}
+
+// pass B: grid (tiles = ceil(HW / kBwdTile), B, ceil(cout/32) *
+// ceil(C/32)); partial[(b * tiles + tile)][co][ci][k]
+__global__ void __launch_bounds__(256)
+deform_bwd_weight_kernel(const float* __restrict__ x,
+                         const float* __restrict__ off,
+                         const float* __restrict__ gout,
+                         float* __restrict__ partial, int C, int H, int W,
+                         int G, int cout, int pad) {
+  __shared__ float gs[32][129];                  // gout, padded rows
+  __shared__ __align__(16) float ss[128 * 32];   // S, swizzled rows
+  const int HW = H * W;
+  const int tile = blockIdx.x, b = blockIdx.y;
+  const int ncb = (C + 31) / 32;
+  const int co0 = (blockIdx.z / ncb) * 32, ci0 = (blockIdx.z % ncb) * 32;
+  const int tid = threadIdx.x;
+  const int Cg = C / G;
+  const int co_l = tid >> 3, cq = (tid & 7) * 4;   // this thread's dW block
+  const int px = tid & 127, half = tid >> 7;       // its samples
+  const float* gb = gout + (size_t)b * cout * HW;
+  const float* offb = off + (size_t)b * G * 2 * kTaps * HW;
+  const float* xbat = x + (size_t)b * C * HW;
+  float acc[kTaps][4] = {};
+  for (int s = 0; s < kBwdSub; ++s) {
+    const int p0 = tile * kBwdTile + s * 128;
+    if (p0 >= HW) break;            // the same for the whole CTA
+    __syncthreads();                // the last sub-tile's reads are done
+    for (int i = tid; i < 32 * 128; i += 256) {
+      const int o = i >> 7, q = p0 + (i & 127);
+      gs[o][i & 127] = co0 + o < cout && q < HW
+          ? __ldg(gb + (size_t)(co0 + o) * HW + q) : 0.f;
+    }
+    const int p = p0 + px;
+    const bool in = p < HW;
+    const int py = in ? p / W : 0, pxx = in ? p % W : 0;
+#pragma unroll
+    for (int k = 0; k < kTaps; ++k) {
+      const float yb = (float)(py + k / 3 - pad);
+      const float xb = (float)(pxx + k % 3 - pad);
+      __syncthreads();              // the last tap's S is read
+      // this thread's 16 columns, half * 16 on; the corners once a group
+      int last_g = -1;
+      Corners r{};
+      for (int col = half * 16; col < half * 16 + 16; ++col) {
+        const int ci = ci0 + col;
+        float v = 0.f;
+        if (in && ci < C) {
+          const int g = ci / Cg;
+          if (g != last_g) {
+            const size_t ch = (size_t)(g * kTaps + k) * 2;
+            r = corners(yb + __ldg(offb + ch * HW + p),
+                        xb + __ldg(offb + (ch + 1) * HW + p), H, W);
+            last_g = g;
+          }
+          const float* xc = xbat + (size_t)ci * HW;
+          v = r.w00 * __ldg(xc + r.i00) + r.w01 * __ldg(xc + r.i01) +
+              r.w10 * __ldg(xc + r.i10) + r.w11 * __ldg(xc + r.i11);
+        }
+        ss[px * 32 + (col ^ swz(px))] = v;
+      }
+      __syncthreads();              // S and gout are in
+      const float* grow = gs[co_l];
+#pragma unroll 4
+      for (int q = 0; q < 128; ++q) {
+        const float gv = grow[q];
+        const float4 sv =
+            *reinterpret_cast<const float4*>(ss + q * 32 + (cq ^ swz(q)));
+        acc[k][0] += gv * sv.x;
+        acc[k][1] += gv * sv.y;
+        acc[k][2] += gv * sv.z;
+        acc[k][3] += gv * sv.w;
+      }
+    }
+  }
+  float* pt = partial + (size_t)(b * gridDim.x + tile) * cout * C * kTaps;
+  const int co = co0 + co_l;
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ci = ci0 + cq + j;
+      if (co < cout && ci < C) pt[((size_t)co * C + ci) * kTaps + k] = acc[k][j];
+    }
+  }
+}
+
+// dW[e] = sum over the tiles, in order, of partial[tile][e]
+__global__ void deform_bwd_weight_reduce_kernel(
+    const float* __restrict__ partial, float* __restrict__ dw, int n,
+    int tiles) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int t = 0; t < tiles; ++t) s += partial[(size_t)t * n + i];
+  dw[i] = s;
+}
+
 }  // namespace
 
 // x (b, c, h, w), off (b, g*2*9, h, w), w (cout, c, 3, 3) -> out
@@ -857,4 +1099,59 @@ extern "C" int romp_deform_conv2d_bf16(const void* x, const float* off,
   }
   return vec ? launch_bf16<0, 4>(a, grid, smem, stream)
              : launch_bf16<0, 1>(a, grid, smem, stream);
+}
+
+// The backward (see its header above): x (b, c, h, w), off (b, g*2*9, h,
+// w), w (cout, c, 3, 3) and gout (b, cout, h, w), f32 and contiguous ->
+// dx (b, c, h, w), doff (b, g*2*9, h, w), dw (cout, c, 3, 3); scratch
+// `partial`: b * ceil(h*w / 1024) * cout * c * 9 floats (ops/deform_conv.py
+// `bwd_partial_floats`). dx is zeroed here. Returns the cudaError_t of the
+// launches (cudaErrorInvalidValue for shapes the kernels do not take).
+extern "C" int romp_deform_conv2d_bwd_f32(const float* x, const float* off,
+                                          const float* w, const float* gout,
+                                          float* dx, float* doff, float* dw,
+                                          float* partial, int b, int c,
+                                          int h, int wd, int g, int cout,
+                                          int pad, cudaStream_t stream) {
+  const size_t smem = bwd_input_smem(c, cout);
+  if (b <= 0 || c <= 0 || h <= 0 || wd <= 0 || g <= 0 || cout <= 0 ||
+      c % g != 0 || (long long)b * kTaps > 65535 ||
+      (long long)((cout + 31) / 32) * ((c + 31) / 32) > 65535 ||
+      (long long)b * h * wd * (c > cout ? c : cout) >= (1ll << 31) ||
+      (long long)b * h * wd * g * 2 * kTaps >= (1ll << 31) ||
+      smem > (size_t)kMaxSmem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int hw = h * wd;
+  cudaError_t err =
+      cudaMemsetAsync(dx, 0, (size_t)b * c * hw * sizeof(float), stream);
+  if (err != cudaSuccess) return (int)err;
+  static size_t smem_set[64] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && (dev >= 64 || smem_set[dev] < smem)) {
+    err = cudaFuncSetAttribute(deform_bwd_input_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  deform_bwd_input_kernel<<<dim3((hw + kBwdPix - 1) / kBwdPix, b * kTaps),
+                            kBwdPix, smem, stream>>>(x, off, w, gout, dx,
+                                                     doff, c, h, wd, g, cout,
+                                                     pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (hw + kBwdTile - 1) / kBwdTile;
+  deform_bwd_weight_kernel<<<dim3(tiles, b,
+                                  ((cout + 31) / 32) * ((c + 31) / 32)),
+                             256, 0, stream>>>(x, off, gout, partial, c, h,
+                                               wd, g, cout, pad);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int n = cout * c * kTaps;
+  deform_bwd_weight_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      partial, dw, n, b * tiles);
+  return (int)cudaGetLastError();
 }

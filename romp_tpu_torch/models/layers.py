@@ -298,13 +298,14 @@ class _FoldedBf16Norm(_Bf16Cast):
             shape)
 
 
-def record_bn_updates(net: nn.Module, on: bool = True
+def record_bn_updates(net: nn.Module, on: bool = True,
+                      into: Optional[Dict[str, torch.Tensor]] = None
                       ) -> Dict[str, torch.Tensor]:
     """Make every BatchNorm of `net` record its train-mode running-statistics
-    update, keyed by state-dict name, into the returned (fresh) dict instead
-    of updating in place; `on=False` detaches them again (torch's own
-    train-mode BatchNorm)."""
-    updates: Dict[str, torch.Tensor] = {}
+    update, keyed by state-dict name, into the returned dict (`into`, or a
+    fresh one) instead of updating in place; `on=False` detaches them again
+    (torch's own train-mode BatchNorm)."""
+    updates: Dict[str, torch.Tensor] = {} if into is None else into
     for name, m in net.named_modules():
         if isinstance(m, _FoldedBf16Norm):
             m.bn_updates = (updates, name) if on else None
@@ -435,7 +436,10 @@ class BasicBlock3d(nn.Module):
 
     def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
         out = torch.relu(self.bn1(self.conv1(x, opts)))
-        return self.bn2(self.conv2(out, opts)) + x.to(opts.act_dtype)
+        # the residual in bf16 on the bf16-activation path; otherwise as it
+        # comes (an f64 net's stays f64)
+        res = x.to(torch.bfloat16) if opts.bf16_act else x
+        return self.bn2(self.conv2(out, opts)) + res
 
 
 def he_normal_(weight: torch.Tensor, generator: torch.Generator) -> None:

@@ -26,7 +26,7 @@ from romp_tpu_torch.models.bev import (
 from romp_tpu_torch.models.hrnet import hrnet32
 from romp_tpu_torch.models.layers import (
     F32, BasicBlock, BasicBlock3d, BasicBlockConvDs, Conv2d, LayerOpts,
-    _Bf16Cast,
+    _Bf16Cast, at_least_f32,
 )
 from romp_tpu_torch.ops.deform_conv import deform_conv2d
 
@@ -123,8 +123,8 @@ class TemporalEncoder(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # bf16 features promote to f32 against the f32 weights, as JAX's
-        # `x @ w.T + b` does
-        y = self.regressor(x.float())
+        # `x @ w.T + b` does (an f64 net stays f64)
+        y = self.regressor(at_least_f32(x))
         return torch.cat([layer(y) for layer in self.out_layers], dim=-1)
 
 
@@ -143,12 +143,13 @@ class DeformWarp(_Bf16Cast, nn.Module):
 
     def forward(self, x: torch.Tensor, offsets: torch.Tensor,
                 opts: LayerOpts = F32) -> torch.Tensor:
-        offsets = offsets.float().contiguous()
+        offsets = at_least_f32(offsets).contiguous()
         if opts.bf16_act:
             return deform_conv2d(x.to(torch.bfloat16).contiguous(), offsets,
                                  self._bf16("weight"), DEFORM_GROUPS)
-        return deform_conv2d(x.float().contiguous(), offsets,
-                             self.weight.float().contiguous(), DEFORM_GROUPS)
+        return deform_conv2d(at_least_f32(x).contiguous(), offsets,
+                             at_least_f32(self.weight).contiguous(),
+                             DEFORM_GROUPS)
 
 
 class TraceMaps(NamedTuple):
@@ -207,8 +208,16 @@ class TraceNet(nn.Module):
                          opts: LayerOpts = F32) -> torch.Tensor:
         """(T, S, S, 3) RGB in [0, 255] (uint8 or float) -> (T, 32, S/4,
         S/4) f32 backbone features (`trace_pipeline.py:98-105`)."""
-        x = ((images.float() / 255.0) * 2.0 - 1.0).permute(0, 3, 1, 2)
-        return self.backbone(x.contiguous(), opts).float()
+        return backbone_features(self.backbone, images, opts)
+
+
+def backbone_features(backbone: nn.Module, images: torch.Tensor,
+                      opts: LayerOpts = F32) -> torch.Tensor:
+    """An HRNet image backbone (TraceNet's, or ROMP's for TRACE training's
+    frozen features) on (T, S, S, 3) RGB in [0, 255] -> (T, 32, S/4, S/4)
+    f32 features."""
+    x = ((images.float() / 255.0) * 2.0 - 1.0).permute(0, 3, 1, 2)
+    return at_least_f32(backbone(x.contiguous(), opts))
 
 
 def extract_temporal_features(net: TraceNet, feats: torch.Tensor,
@@ -275,7 +284,9 @@ def trace_forward_maps(net: TraceNet, feats: torch.Tensor,
                            combined, [motion_fv], opts)    # (T, D, W)
     m3d = motion_fv[:, :, None] + motion_bv[:, None, :, None, :]
     m3d = net.motion_map_refiner[0](m3d, opts)
-    m3d[0] = 0.0      # frame 0 of each clip has no supervised motion
+    # frame 0 of each clip has no supervised motion; out of place, as the
+    # refiner's backward may have saved its output
+    m3d = torch.cat([torch.zeros_like(m3d[:1]), m3d[1:]])
 
     # camera motion / rotation: cam_motion_head's first 5 blocks are the
     # shared features; block 5 + the 1x1 conv give the cam motion, and

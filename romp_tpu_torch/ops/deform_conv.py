@@ -13,9 +13,22 @@ Stride 1, dilation 1, no mask, no bias; bilinear sampling with zero outside
 the image, each of the four corners checked on its own. The kernel is
 `romp_tpu_torch/csrc/deform_conv.cu`: samples gathered into shared memory,
 contracted on the tensor cores in split TF32 (`ops/lbs.py` `tf32_round` and
-`split_tf32_matmul` model that arithmetic). Forward only: the backward
-comes with the training slice, and the kernel wrapper raises under grad
-mode when an operand requires grad.
+`split_tf32_matmul` model that arithmetic).
+
+`deform_conv2d` is differentiable on f32 operands (`_DeformConv2d`, the
+counterpart of the `custom_vjp` `romp_tpu/ops/pallas_deform.py:154-186`,
+whose backward is the VJP of the XLA `deform_conv2d`). With S the bilinear
+sample, gcol[b, g*Cg+c, k, p] = sum_o weight[o, g*Cg+c, k] * gout[b, o, p]:
+
+    dx[b, g*Cg+c, corner]   += w_corner * valid * gcol      (a scatter)
+    doffsets[b, g, k, dy|dx, p] = sum_c gcol * dS/dy | dS/dx
+    dweight[o, g*Cg+c, k]   = sum_{b, p} gout[b, o, p] * S[b, g, c, k, p]
+
+dS/dy is the row difference of the corner values blended by the x weights,
+dS/dx the other way round, and floor has no gradient (as in JAX's one-hot
+formulation). On CUDA tensors the backward is `csrc/deform_conv.cu`
+`romp_deform_conv2d_bwd_f32` (`deform_conv2d_backward`), on CPU tensors
+`deform_conv2d_bwd_plain`, its twin.
 
 bf16 x and weight (TRACE's bf16-activation path; offsets stay f32, the
 output is f32) take the kernel's bf16 variant and `deform_conv2d_plain`'s
@@ -37,6 +50,11 @@ TAPS = 9
 CHUNK_COLS = 32
 N_TILE = 32
 FRAGS = 4 * 4 * 32
+# csrc/deform_conv.cu kBwdTile: pixels per CTA of the backward's dW pass
+BWD_TILE = 1024
+BF16_GRAD = (
+    "deform_conv2d: the bf16 variant has no backward; training with bf16 "
+    "activations is not ported (ROADMAP queue 1, after BEV training)")
 
 
 def deform_smem(G: int, Cg: int) -> int:
@@ -71,16 +89,17 @@ def scratch_floats(B: int, C: int, H: int, W: int, Cout: int) -> int:
 
 def _sample_coords(offsets: torch.Tensor, G: int, H: int, W: int,
                    padding: int):
-    """The f32 sample coordinates (ys, xs), each (B, G, 9, H, W): pixel +
-    tap - padding + the tap's (dy, dx) offset."""
+    """The sample coordinates (ys, xs), each (B, G, 9, H, W): pixel + tap -
+    padding + the tap's (dy, dx) offset; f32 (f64 for f64 offsets)."""
     B = offsets.shape[0]
-    off = offsets.reshape(B, G, TAPS, 2, H, W).float()
+    dt = torch.promote_types(offsets.dtype, torch.float32)
+    off = offsets.reshape(B, G, TAPS, 2, H, W).to(dt)
     k = torch.arange(TAPS, device=offsets.device)
-    ky = (k // 3 - padding).float().view(1, 1, TAPS, 1, 1)
-    kx = (k % 3 - padding).float().view(1, 1, TAPS, 1, 1)
-    yy = torch.arange(H, dtype=torch.float32, device=offsets.device).view(
+    ky = (k // 3 - padding).to(dt).view(1, 1, TAPS, 1, 1)
+    kx = (k % 3 - padding).to(dt).view(1, 1, TAPS, 1, 1)
+    yy = torch.arange(H, dtype=dt, device=offsets.device).view(
         1, 1, 1, H, 1)
-    xx = torch.arange(W, dtype=torch.float32, device=offsets.device).view(
+    xx = torch.arange(W, dtype=dt, device=offsets.device).view(
         1, 1, 1, 1, W)
     return yy + ky + off[:, :, :, 0], xx + kx + off[:, :, :, 1]
 
@@ -116,7 +135,7 @@ def deform_conv2d_plain(x: torch.Tensor, offsets: torch.Tensor,
     samp = (tap(y0, x0, wy0 * wx0) + tap(y0, x0 + 1, wy0 * wx1)
             + tap(y0 + 1, x0, wy1 * wx0) + tap(y0 + 1, x0 + 1, wy1 * wx1))
     samp = samp.reshape(B, G, Cg, TAPS, H * W)
-    wk = weight.reshape(Cout, G, Cg, TAPS).float()
+    wk = weight.reshape(Cout, G, Cg, TAPS).to(samp.dtype)
     out = torch.einsum("bgckp,ogck->bop", samp, wk)
     return out.reshape(B, Cout, H, W)
 
@@ -162,33 +181,169 @@ def _deform_plain_bf16(x: torch.Tensor, offsets: torch.Tensor,
     return out.reshape(B, Cout, H, W)
 
 
+def bwd_partial_floats(B: int, C: int, H: int, W: int, Cout: int) -> int:
+    """The backward's dW partial sums: one (Cout, C, 9) block per pixel
+    tile of BWD_TILE pixels of each frame."""
+    return B * -(-H * W // BWD_TILE) * Cout * C * TAPS
+
+
+def deform_conv2d_bwd_plain(x: torch.Tensor, offsets: torch.Tensor,
+                            weight: torch.Tensor, gout: torch.Tensor,
+                            deform_groups: int = 8, padding: int = 1):
+    """Plain PyTorch backward of `deform_conv2d_plain` (f32): the cotangent
+    gout (B, Cout, H, W) -> (dx (B, C, H, W), doffsets (B, G*18, H, W),
+    dweight (Cout, C, 3, 3)), by the formulas of the module docstring:
+    gathers for the samples and their differences, `scatter_add_` for dx."""
+    B, C, H, W = x.shape
+    G = deform_groups
+    Cg = C // G
+    Cout = weight.shape[0]
+    n = TAPS * H * W
+    ys, xs = _sample_coords(offsets, G, H, W, padding)
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    ly, lx = (ys - y0).reshape(B, G, 1, n), (xs - x0).reshape(B, G, 1, n)
+    hy, hx = 1.0 - ly, 1.0 - lx
+    xg = x.reshape(B, G, Cg, H * W)
+    wk = weight.reshape(Cout, G, Cg, TAPS)
+    gcol = torch.einsum("ogck,bop->bgckp", wk,
+                        gout.reshape(B, Cout, H * W)).reshape(B, G, Cg, n)
+
+    def corner(yi, xi):
+        """(values, flat indices, inside flags) of one corner."""
+        valid = ((yi >= 0) & (yi < H) & (xi >= 0) & (xi < W)).reshape(
+            B, G, 1, n)
+        idx = (yi.clamp(0, H - 1).long() * W
+               + xi.clamp(0, W - 1).long()).reshape(B, G, 1, n)
+        idx = idx.expand(B, G, Cg, n)
+        return torch.gather(xg, 3, idx) * valid, idx, valid
+
+    (v00, i00, m00), (v01, i01, m01), (v10, i10, m10), (v11, i11, m11) = (
+        corner(y0, x0), corner(y0, x0 + 1), corner(y0 + 1, x0),
+        corner(y0 + 1, x0 + 1))
+    dly = (gcol * (hx * (v10 - v00) + lx * (v11 - v01))).sum(2)
+    dlx = (gcol * (hy * (v01 - v00) + ly * (v11 - v10))).sum(2)
+    doffsets = torch.stack([dly.reshape(B, G, TAPS, H, W),
+                            dlx.reshape(B, G, TAPS, H, W)], dim=3)
+    dxg = torch.zeros_like(xg)
+    for idx, wt, valid in ((i00, hy * hx, m00), (i01, hy * lx, m01),
+                           (i10, ly * hx, m10), (i11, ly * lx, m11)):
+        dxg.scatter_add_(3, idx, gcol * (wt * valid))
+    samp = (hy * hx * v00 + hy * lx * v01 + ly * hx * v10 + ly * lx * v11)
+    dweight = torch.einsum("bop,bgckp->ogck", gout.reshape(B, Cout, H * W),
+                           samp.reshape(B, G, Cg, TAPS, H * W))
+    return (dxg.reshape(B, C, H, W), doffsets.reshape(B, G * 2 * TAPS, H, W),
+            dweight.reshape(Cout, C, 3, 3))
+
+
+def deform_conv2d_backward(x: torch.Tensor, offsets: torch.Tensor,
+                           weight: torch.Tensor, gout: torch.Tensor,
+                           deform_groups: int = 8, padding: int = 1):
+    """The backward kernels (`csrc/deform_conv.cu`
+    `romp_deform_conv2d_bwd_f32`) for CUDA tensors, `deform_conv2d_bwd_plain`
+    for CPU tensors: (dx, doffsets, dweight), f32. dx is scattered with
+    float atomics (its last bits vary from run to run); dweight is summed
+    over pixel tiles in a second pass in a fixed order (bit-equal run to
+    run). `deform_conv2d_backward.launches` counts launches (the three
+    kernels of one call are one launch)."""
+    if x.device.type == "cpu":
+        return deform_conv2d_bwd_plain(x, offsets, weight, gout,
+                                       deform_groups, padding)
+    B, C, H, W, G, Cout = _check_operands(
+        "deform_conv2d_backward", x, offsets, weight, deform_groups,
+        torch.float32, ("gout", gout))
+    dx = torch.empty_like(x)
+    doffsets = torch.empty_like(offsets)
+    dweight = torch.empty_like(weight)
+    if B == 0 or H * W == 0:
+        return dx.zero_(), doffsets.zero_(), dweight.zero_()
+    partial = torch.empty(bwd_partial_floats(B, C, H, W, Cout),
+                          dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.load().romp_deform_conv2d_bwd_f32(
+            x.data_ptr(), offsets.data_ptr(), weight.data_ptr(),
+            gout.data_ptr(), dx.data_ptr(), doffsets.data_ptr(),
+            dweight.data_ptr(), partial.data_ptr(), B, C, H, W, G, Cout,
+            padding, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "romp_deform_conv2d_bwd_f32")
+    deform_conv2d_backward.launches += 1
+    return dx, doffsets, dweight
+
+
+deform_conv2d_backward.launches = 0
+
+
+def _check_operands(what, x, offsets, weight, deform_groups, dtype, *more):
+    """The kernels' operand checks: x a (B, C, H, W) CUDA tensor, C
+    divisible by G; x, weight and `more` (further (name, tensor) pairs of
+    the output's shape, f32) of `dtype`, offsets f32; all contiguous and on
+    x's device."""
+    if x.dim() != 4 or x.device.type != "cuda":
+        raise ValueError(f"{what}: x must be a (B, C, H, W) CUDA tensor, "
+                         f"got {tuple(x.shape)} on {x.device}")
+    B, C, H, W = x.shape
+    G = deform_groups
+    Cout = weight.shape[0]
+    if C % G:
+        raise ValueError(f"{what}: C={C} not divisible by G={G}")
+    for name, t, dt, shape in (
+            ("x", x, dtype, (B, C, H, W)),
+            ("offsets", offsets, torch.float32, (B, G * 2 * TAPS, H, W)),
+            ("weight", weight, dtype, (Cout, C, 3, 3)),
+            *((n, t, torch.float32, (B, Cout, H, W)) for n, t in more)):
+        _build.check_operand(what, name, t, dt, shape, x.device)
+    return B, C, H, W, G, Cout
+
+
+class _DeformConv2d(torch.autograd.Function):
+    """deform_conv2d with its backward (`pallas_deform.py:154-186`): saves
+    x, offsets and weight, as `_fast_fwd` does."""
+
+    @staticmethod
+    def forward(ctx, x, offsets, weight, deform_groups, padding):
+        ctx.save_for_backward(x, offsets, weight)
+        ctx.deform_groups, ctx.padding = deform_groups, padding
+        return _deform_forward(x, offsets, weight, deform_groups, padding)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, offsets, weight = ctx.saved_tensors
+        dx, doffsets, dweight = deform_conv2d_backward(
+            x, offsets, weight, gout.contiguous(), ctx.deform_groups,
+            ctx.padding)
+        return dx, doffsets, dweight, None, None
+
+
 def deform_conv2d(x: torch.Tensor, offsets: torch.Tensor,
                   weight: torch.Tensor, deform_groups: int = 8,
                   padding: int = 1) -> torch.Tensor:
     """Deformable conv: the CUDA kernel for CUDA tensors,
     `deform_conv2d_plain` for CPU tensors. x and weight f32 (the f32
     kernel) or both bf16 (its bf16 variant); offsets f32; the output f32.
-    See the module docstring for shapes. `deform_conv2d.launches` counts
-    kernel launches, `deform_conv2d.bf16_launches` the bf16 variant's.
+    See the module docstring for shapes. Differentiable in x, offsets and
+    weight when they are f32 (`_DeformConv2d`); the bf16 variant has no
+    backward and raises under grad mode on CUDA tensors.
+    `deform_conv2d.launches` counts forward kernel launches,
+    `deform_conv2d.bf16_launches` the bf16 variant's.
     """
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, offsets, weight)):
+        if x.dtype != torch.bfloat16:
+            return _DeformConv2d.apply(x, offsets, weight, deform_groups,
+                                       padding)
+        if x.device.type == "cuda":
+            raise RuntimeError(BF16_GRAD)
+    return _deform_forward(x, offsets, weight, deform_groups, padding)
+
+
+def _deform_forward(x: torch.Tensor, offsets: torch.Tensor,
+                    weight: torch.Tensor, deform_groups: int,
+                    padding: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return deform_conv2d_plain(x, offsets, weight, deform_groups, padding)
-    if x.dim() != 4 or x.device.type != "cuda":
-        raise ValueError(f"deform_conv2d: x must be a (B, C, H, W) CUDA "
-                         f"tensor, got {tuple(x.shape)} on {x.device}")
-    _build.check_no_grad("deform_conv2d", x, offsets, weight)
-    B, C, H, W = x.shape
-    G = deform_groups
-    Cout = weight.shape[0]
-    if C % G:
-        raise ValueError(f"deform_conv2d: C={C} not divisible by G={G}")
     bf16 = x.dtype == torch.bfloat16
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    for name, t, dt, shape in (
-            ("x", x, dtype, (B, C, H, W)),
-            ("offsets", offsets, torch.float32, (B, G * 2 * TAPS, H, W)),
-            ("weight", weight, dtype, (Cout, C, 3, 3))):
-        _build.check_operand("deform_conv2d", name, t, dt, shape, x.device)
+    B, C, H, W, G, Cout = _check_operands(
+        "deform_conv2d", x, offsets, weight, deform_groups,
+        torch.bfloat16 if bf16 else torch.float32)
     out = torch.empty((B, Cout, H, W), dtype=torch.float32, device=x.device)
     if B == 0 or H * W == 0:
         return out

@@ -81,11 +81,12 @@ def collision_aware_centers(centers: torch.Tensor, radii: torch.Tensor,
 
 def generate_centermap3d(centers_zyx: torch.Tensor, mask: torch.Tensor,
                          map_size: int = 128, depth_size: int = 64,
-                         radius: int = 3) -> torch.Tensor:
+                         radius: int = 3, dtype: torch.dtype = torch.float32
+                         ) -> torch.Tensor:
     """BEV's 3D GT centermap (`centermap.py:141-187`): fixed-radius 3D
     Gaussian splats combined by max, centers forced to 1. centers_zyx
     (B, K, 3) integer grid (z, y, x); mask (B, K) -> (B, depth_size,
-    map_size, map_size)."""
+    map_size, map_size) of `dtype`."""
     cz, cy, cx = (centers_zyx[..., i].to(torch.int32) for i in range(3))
     valid = (mask & (cz >= 0) & (cz < depth_size) & (cy >= 0)
              & (cy < map_size) & (cx >= 0) & (cx < map_size))
@@ -95,7 +96,7 @@ def generate_centermap3d(centers_zyx: torch.Tensor, mask: torch.Tensor,
     dy = (torch.arange(map_size, device=dev)[None, None] - cy[..., None])
     dx = (torch.arange(map_size, device=dev)[None, None] - cx[..., None])
     d2 = (dz[..., :, None, None] ** 2 + dy[..., None, :, None] ** 2
-          + dx[..., None, None, :] ** 2).float()       # (B, K, D, S, S)
+          + dx[..., None, None, :] ** 2).to(dtype)     # (B, K, D, S, S)
     box = ((dz.abs() <= radius)[..., :, None, None]
            & (dy.abs() <= radius)[..., None, :, None]
            & (dx.abs() <= radius)[..., None, None, :])

@@ -84,6 +84,9 @@ class PrefetchLoader:
                 continue
 
     def close(self):
+        """Stop the workers and wait for each to finish the batch it is
+        assembling: a worker may run device work (TRACE's frozen backbone
+        and RAFT's flow), which must not outlive the run that started it."""
         self._stop.set()
         # drain so blocked workers can observe the stop flag
         try:
@@ -92,4 +95,4 @@ class PrefetchLoader:
         except queue.Empty:
             pass
         for t in self._threads:
-            t.join(timeout=5)
+            t.join()

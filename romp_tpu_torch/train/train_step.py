@@ -30,9 +30,11 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
 from romp_tpu_torch.models.layers import (
@@ -149,20 +151,25 @@ class OptState:
     schedule_count: Optional[torch.Tensor] = None
 
     @staticmethod
-    def zeros(numel: int, device, schedule: bool) -> "OptState":
+    def zeros(numel: int, device, schedule: bool,
+              dtype: torch.dtype = torch.float32) -> "OptState":
         def i32():
             return torch.zeros((), dtype=torch.int32, device=device)
         return OptState(
             i32(), torch.ones((), dtype=torch.bool, device=device), i32(),
-            i32(), torch.zeros(numel, device=device),
-            torch.zeros(numel, device=device), i32() if schedule else None)
+            i32(), torch.zeros(numel, dtype=dtype, device=device),
+            torch.zeros(numel, dtype=dtype, device=device),
+            i32() if schedule else None)
 
 
 def _flatten_into(tensors: List[torch.Tensor], device) -> torch.Tensor:
-    """One flat f32 buffer holding the tensors' values, which become views
-    into it (in place: the module sees the same tensors)."""
-    flat = torch.cat([torch.zeros(0, device=device)]
-                     + [t.detach().reshape(-1).float() for t in tensors])
+    """One flat f32 buffer (f64 for an f64 net) holding the tensors'
+    values, which become views into it (in place: the module sees the same
+    tensors)."""
+    dtype = functools.reduce(torch.promote_types,
+                             (t.dtype for t in tensors), torch.float32)
+    flat = torch.cat([torch.zeros(0, dtype=dtype, device=device)]
+                     + [t.detach().reshape(-1).to(dtype) for t in tensors])
     offset = 0
     for t in tensors:
         n = t.numel()
@@ -174,12 +181,12 @@ def _flatten_into(tensors: List[torch.Tensor], device) -> torch.Tensor:
 @dataclasses.dataclass
 class TrainState:
     """The trainable parameters, BatchNorm statistics, optimizer state and
-    step of the JAX package's TrainState, held by a RompNet: `trainable` and
-    `bn_state` are the net's own parameter and buffer tensors (views into
-    `flat` and `bn_flat`, sorted by name), updated in place by
-    `train_step`."""
+    step of the JAX package's TrainState, held by a net (a RompNet here, a
+    TRACE head in `trace_train_step.py`): `trainable` and `bn_state` are the
+    net's own parameter and buffer tensors (views into `flat` and
+    `bn_flat`, sorted by name), updated in place by the step."""
 
-    net: RompNet
+    net: nn.Module
     names: Tuple[str, ...]       # trainable, sorted
     bn_names: Tuple[str, ...]    # running statistics, sorted
     flat: torch.Tensor
@@ -198,8 +205,10 @@ class TrainState:
         return {k: bufs[k] for k in self.bn_names}
 
 
-def init_train_state(net: RompNet, cfg: TrainConfig) -> TrainState:
-    """A fresh optimizer state over the net's parameters (on its device)."""
+def init_train_state(net: nn.Module, cfg: TrainConfig) -> TrainState:
+    """A fresh optimizer state over the net's parameters (on its device).
+    `cfg` is any step config with TrainConfig's optimizer fields (lr,
+    lr_milestones, lr_decay, warmup_steps)."""
     params, bufs = split_params(net.state_dict(keep_vars=True))
     names, bn_names = tuple(sorted(params)), tuple(sorted(bufs))
     device = params[names[0]].device
@@ -208,7 +217,8 @@ def init_train_state(net: RompNet, cfg: TrainConfig) -> TrainState:
     schedule = not isinstance(make_lr_schedule(
         cfg.lr, cfg.lr_milestones, cfg.lr_decay, cfg.warmup_steps), float)
     return TrainState(net, names, bn_names, flat, bn_flat,
-                      OptState.zeros(flat.numel(), flat.device, schedule),
+                      OptState.zeros(flat.numel(), flat.device, schedule,
+                                     flat.dtype),
                       torch.zeros((), dtype=torch.int32, device=flat.device))
 
 
@@ -216,8 +226,9 @@ def init_train_state(net: RompNet, cfg: TrainConfig) -> TrainState:
 def optimizer_update(state: TrainState, grad: torch.Tensor,
                      cfg: TrainConfig) -> torch.Tensor:
     """optax's apply_if_finite(chain(clip_by_global_norm, adamw)) on the
-    flat gradient, applied in place to `state.flat` and `state.opt_state`.
-    Returns whether the gradient was finite (a 0-dim bool tensor)."""
+    flat gradient, applied in place to `state.flat` and `state.opt_state`
+    (`cfg`: any step config with TrainConfig's optimizer fields). Returns
+    whether the gradient was finite (a 0-dim bool tensor)."""
     opt = state.opt_state
     finite = torch.isfinite(grad).all()
     notfinite = torch.where(finite, torch.zeros_like(opt.notfinite_count),
@@ -232,8 +243,8 @@ def optimizer_update(state: TrainState, grad: torch.Tensor,
     mu = (1 - ADAM_B1) * g + ADAM_B1 * opt.mu
     nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * opt.nu
     count = _safe_increment(opt.count)
-    mu_hat = mu / (1 - torch.pow(ADAM_B1, count.float()))
-    nu_hat = nu / (1 - torch.pow(ADAM_B2, count.float()))
+    mu_hat = mu / (1 - torch.pow(ADAM_B1, count.to(mu.dtype)))
+    nu_hat = nu / (1 - torch.pow(ADAM_B2, count.to(mu.dtype)))
     update = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
     # add_decayed_weights, scale_by_learning_rate
     update = update + cfg.weight_decay * state.flat

@@ -74,13 +74,31 @@ def train_state_from_jax(npz, cfg, device="cpu"):
     from romp_tpu_torch.models.romp import RompNet
     from romp_tpu_torch.train.train_step import init_train_state
 
+    return _train_state_from_jax(npz, RompNet(cfg.backbone), cfg, device,
+                                 init_train_state)
+
+
+def trace_train_state_from_jax(npz, cfg, device="cpu", map_size=128):
+    """The JAX package's TRACE `trace_last.npz` (`save_train_state` of a
+    TraceTrainState: the head's parameters, its BatchNorm statistics and
+    the same optimizer leaves as ROMP's) as the port's TRACE train state
+    for the TraceTrainConfig `cfg`, on `device`: a TraceNet head without
+    its image backbone, `map_size` sizing its BV convs as in
+    `init_trace_params`."""
+    from romp_tpu_torch.models.trace import TraceNet
+    from romp_tpu_torch.train.trace_train_step import trace_init_train_state
+
+    return _train_state_from_jax(npz, TraceNet(None, map_size), cfg, device,
+                                 trace_init_train_state)
+
+
+def _train_state_from_jax(npz, net, cfg, device, init_state):
     if isinstance(npz, str):
         with np.load(npz) as data:
             npz = {k: data[k] for k in data.files}
-    net = RompNet(cfg.backbone)
     params = {k[3:]: v for k, v in npz.items() if k.startswith(("p::", "b::"))}
     net.load_state_dict(state_dict_from_jax(params))
-    state = init_train_state(net.to(device), cfg)
+    state = init_state(net.to(device), cfg)
     names = state.names
     leaves = [npz[f"o::{i}"] for i in range(len(
         [k for k in npz if k.startswith("o::")]))]

@@ -6,7 +6,10 @@ Skips without a CUDA device. On a machine with one:
 import pytest
 import torch
 
-from romp_tpu_torch.ops.deform_conv import deform_conv2d, deform_conv2d_plain
+from romp_tpu_torch.ops.deform_conv import (
+    deform_conv2d, deform_conv2d_backward, deform_conv2d_bwd_plain,
+    deform_conv2d_plain,
+)
 from romp_tpu_torch.ops.fused_chain import (
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain,
 )
@@ -217,20 +220,21 @@ def test_bf16_kernels_reject_other_dtypes(dev):
 
 
 def test_kernel_wrappers_raise_under_grad(dev):
-    """The chain and deform kernels are forward only: under grad mode with
-    an operand that requires grad each wrapper raises (its output would
-    carry no graph); under no_grad the same call runs. (Skinning has its
-    backward kernel: the tests below.)"""
+    """The chain kernels and the deform's bf16 variant are forward only:
+    under grad mode with an operand that requires grad each wrapper raises
+    (its output would carry no graph); under no_grad the same call runs.
+    (Skinning and the f32 deform have their backward kernels: the tests
+    below.)"""
     g = torch.Generator().manual_seed(8)
     x = torch.randn(1, 16, 8, 8, generator=g).to(dev).requires_grad_()
     cw, sc, sh = _chain_operands(g, 1, 16, dev)
     dw = torch.randn(16, 16, 3, 3, generator=g).to(dev)
     off = torch.zeros(1, 8 * 18, 8, 8, device=dev)
+    xb = x.detach().bfloat16().requires_grad_()
     calls = [lambda: basic_chain(x, cw, sc, sh, 1),
-             lambda: basic_chain(x.detach().bfloat16().requires_grad_(), cw,
-                                 sc, sh, 1),
+             lambda: basic_chain(xb, cw, sc, sh, 1),
              lambda: conv_pass(x, cw[0, 0], sc[0, 0], sh[0, 0]),
-             lambda: deform_conv2d(x, off, dw)]
+             lambda: deform_conv2d(xb, off, dw.bfloat16())]
     for call in calls:
         with pytest.raises(RuntimeError, match="no backward"):
             call()
@@ -292,3 +296,62 @@ def test_skinning_autograd_on_card_is_the_kernel_and_exact(dev, N, V):
     an = (a16.grad * da).sum() + (vpos.grad * dvp).sum()
     assert abs(float(fd - an)) <= 1e-4 * float(
         (a16.grad * da).abs().sum() + (vpos.grad * dvp).abs().sum())
+
+
+def _deform_grad_operands(g, B, C, H, W, G, Cout, dev):
+    x = torch.randn(B, C, H, W, generator=g).to(dev)
+    off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
+    w = (torch.randn(Cout, C, 3, 3, generator=g) * 0.1).to(dev)
+    gout = torch.randn(B, Cout, H, W, generator=g).to(dev)
+    return x, off, w, gout
+
+
+@pytest.mark.parametrize("B,C,H,W,G,Cout", [
+    (10, 32, 128, 128, 8, 32), (8, 32, 128, 128, 8, 32),
+    (3, 12, 37, 29, 3, 20), (2, 40, 33, 50, 8, 36)])
+def test_deform_backward_kernel_matches_plain(dev, B, C, H, W, G, Cout):
+    """The backward kernels (dx, doffsets, dweight) against
+    `deform_conv2d_bwd_plain` on the card: the train step's clip (T = 10)
+    and the inference batch (B = 8) at TRACE's shape, and ragged shapes
+    (H*W not a multiple of the 256- or 1024-pixel tiles; Cg = 4 and 5;
+    C and Cout past one block of 32). Offsets N(0, 2^2): samples cross the
+    border. Bar 1e-4 of max|ref| each, the forward's (f32 sums in another
+    order); one launch."""
+    g = torch.Generator().manual_seed(B * H + W)
+    x, off, w, gout = _deform_grad_operands(g, B, C, H, W, G, Cout, dev)
+    before = deform_conv2d_backward.launches
+    got = deform_conv2d_backward(x, off, w, gout, G)
+    torch.cuda.synchronize()
+    assert deform_conv2d_backward.launches == before + 1
+    for a, r in zip(got, deform_conv2d_bwd_plain(x, off, w, gout, G)):
+        assert a.shape == r.shape
+        assert _rel(a, r) <= 1e-4
+
+
+def test_deform_backward_dweight_is_deterministic(dev):
+    """dweight (tile partials summed in a fixed order) and doffsets (one
+    writer each) are bit-equal from run to run; dx, scattered with float
+    atomics, varies in its last bits only (1e-6 of max|dx|)."""
+    g = torch.Generator().manual_seed(11)
+    x, off, w, gout = _deform_grad_operands(g, 10, 32, 128, 128, 8, 32, dev)
+    a = deform_conv2d_backward(x, off, w, gout, 8)
+    b = deform_conv2d_backward(x, off, w, gout, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(a[2], b[2]) and torch.equal(a[1], b[1])
+    assert _rel(a[0], b[0]) <= 1e-6
+
+
+def test_deform_autograd_on_card_is_the_kernel(dev):
+    """Autograd through `deform_conv2d` on f32 CUDA operands runs the
+    forward and the backward kernels once each, and its gradients are the
+    plain backward's (1e-4 of max|ref|)."""
+    g = torch.Generator().manual_seed(12)
+    x, off, w, gout = _deform_grad_operands(g, 2, 32, 24, 20, 8, 32, dev)
+    leaves = [t.clone().requires_grad_() for t in (x, off, w)]
+    fwd, bwd = deform_conv2d.launches, deform_conv2d_backward.launches
+    grads = torch.autograd.grad(deform_conv2d(*leaves, 8), leaves, gout)
+    torch.cuda.synchronize()
+    assert (deform_conv2d.launches, deform_conv2d_backward.launches) == (
+        fwd + 1, bwd + 1)
+    for a, r in zip(grads, deform_conv2d_bwd_plain(x, off, w, gout, 8)):
+        assert _rel(a, r) <= 1e-4

@@ -164,6 +164,140 @@ def test_launch_main_trains_and_resumes_on_cpu(tmp_path):
 def test_launch_refuses_what_is_not_ported():
     from romp_tpu_torch.train import launch
 
-    for version in ("bev", "trace"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            launch.main([f"model.version={version}", "--GPU", "-1"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        launch.main(["model.version=bev", "--GPU", "-1"])
+
+
+def write_video_pack(root, n_seq=2, frames=5, size=64):
+    """A video pack (`save_video_pack`) of n_seq seeded cv2 sequences with
+    two subjects each, the second valid from frame 2 on."""
+    import cv2
+
+    from romp_tpu_torch.models.trace import trace_cam_anchor
+    from romp_tpu_torch.train.data.video_dataset import (
+        VideoSequence, save_video_pack, trans3d_to_czyx,
+    )
+
+    rng = np.random.RandomState(0)
+    os.makedirs(osp.join(root, "data"), exist_ok=True)
+    seqs = []
+    for s in range(n_seq):
+        paths = []
+        for f in range(frames):
+            path = osp.join(root, f"s{s}_f{f}.jpg")
+            cv2.imwrite(path, (rng.rand(size, size, 3) * 255).astype(
+                np.uint8))
+            paths.append(path)
+        subjects = {}
+        for sid in range(2):
+            tr = np.stack([np.linspace(-0.4, 0.4, frames) + 0.2 * sid,
+                           np.full(frames, 0.1), np.full(frames, 4.0 + sid)],
+                          -1).astype(np.float32)
+            valid = np.arange(frames) >= 2 * sid
+            subjects[sid] = {
+                "valid": valid,
+                "czyx": trans3d_to_czyx(tr, trace_cam_anchor(),
+                                        map_size=size // 4),
+                "trans3d": tr, "world_trans": tr,
+                "pose": (rng.randn(frames, 66) * 0.2).astype(np.float32),
+                "betas": (rng.randn(frames, 11) * 0.3).astype(np.float32)}
+        seqs.append(VideoSequence(paths, subjects))
+    save_video_pack(osp.join(root, "data", "clips.npz"), seqs)
+
+
+@pytest.mark.parametrize("flow", ["zero", "raft"])
+def test_launch_trains_trace_on_cpu(tmp_path, flow):
+    """`launch.main` with model.version=trace and --GPU -1 on a 2-sequence
+    video pack at 64x64 (the tiny HRNet as the frozen backbone, clips of 2
+    frames, batch 2, 2 tracks; zero flow with the batches assembled by a
+    `PrefetchLoader` worker, or RAFT from a seeded weights file): 2 steps
+    logged to trace_train_log.jsonl with finite losses, and trace_last.npz
+    written (the port's checkpoint format)."""
+    from romp_tpu_torch.models.raft import init_raft_params
+    from romp_tpu_torch.train import launch
+
+    root = str(tmp_path)
+    write_video_pack(root)
+    ck = osp.join(root, "ck")
+    args = ["--data_root", osp.join(root, "data"), "--GPU", "-1",
+            "--max_steps", "2", "model.version=trace", "model.input_size=64",
+            "model.backbone=hrnet32_tiny", "train.batch_size=2",
+            "train.compute_dtype=float32", "train.log_every=1",
+            f"train.checkpoint_dir={ck}", "data.datasets=clips",
+            "trace.clip_length=2", "trace.max_tracks=2"]
+    if flow == "zero":
+        args.append("train.num_workers=1")
+    if flow == "raft":
+        raft = osp.join(root, "raft.pth")
+        torch.save(init_raft_params(torch.Generator().manual_seed(0)), raft)
+        args += ["trace.use_optical_flow=true",
+                 f"trace.raft_model_path={raft}"]
+    assert launch.main(args) == 0
+    with open(osp.join(ck, "trace_train_log.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    assert [r["step"] for r in log] == [1, 2]
+    for r in log:
+        for k in ("total", "centermap3d", "motion", "pose", "shape",
+                  "world_trans", "world_grot", "temp_shape"):
+            assert np.isfinite(r[k]), (k, r)
+        assert r["total"] > 0
+    with np.load(osp.join(ck, "trace_last.npz")) as saved:
+        assert int(saved["step"]) == 2 and int(saved["o::count"]) == 2
+        assert "p::deform_warper.weight" in saved.files
+        assert not any(k.startswith("p::backbone.") for k in saved.files)
+
+
+def test_trace_launch_keeps_tf32_off_while_workers_run(tmp_path,
+                                                       monkeypatch):
+    """The precision flags are global to the process, so the f32 recipe's
+    launcher sets them once for the run: with two `PrefetchLoader` workers
+    computing the backbone's features while the main thread steps, cuDNN's
+    and the matmuls' TF32 stay off in every step and in every feature
+    call, the flags are restored after the run, and no worker outlives
+    it."""
+    import threading
+    import time
+
+    from romp_tpu_torch.models import trace as trace_mod
+    from romp_tpu_torch.train import launch
+    from romp_tpu_torch.train import trace_train_step as ttts
+
+    def flags():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    seen = {"step": [], "features": []}
+    features, step = trace_mod.backbone_features, ttts.trace_train_step
+
+    def recorded_features(*a, **k):
+        seen["features"].append((threading.current_thread().name, flags()))
+        out = features(*a, **k)
+        time.sleep(0.05)          # a worker still busy when a step starts
+        seen["features"].append((threading.current_thread().name, flags()))
+        return out
+
+    def recorded_step(*a, **k):
+        seen["step"].append(flags())
+        out = step(*a, **k)
+        seen["step"].append(flags())
+        return out
+
+    monkeypatch.setattr(trace_mod, "backbone_features", recorded_features)
+    monkeypatch.setattr(ttts, "trace_train_step", recorded_step)
+    root = str(tmp_path)
+    write_video_pack(root)
+    before, threads = flags(), threading.active_count()
+    assert launch.main([
+        "--data_root", osp.join(root, "data"), "--GPU", "-1",
+        "--max_steps", "3", "model.version=trace", "model.input_size=64",
+        "model.backbone=hrnet32_tiny", "train.batch_size=1",
+        "train.compute_dtype=float32", "train.num_workers=2",
+        f"train.checkpoint_dir={osp.join(root, 'ck')}",
+        "data.datasets=clips", "trace.clip_length=2",
+        "trace.max_tracks=2"]) == 0
+    assert flags() == before and threading.active_count() == threads
+    assert len(seen["step"]) == 6
+    assert all(f == (False, False) for f in seen["step"]), seen["step"]
+    workers = {name for name, _ in seen["features"]}
+    assert workers and threading.main_thread().name not in workers
+    assert all(f == (False, False) for _, f in seen["features"]), seen
