@@ -24,7 +24,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     weights at TRACE's shape, each against its plain twin; the deform's
     backward (dx, doffsets, dweight) at the train step's clip (10 frames)
     and the inference batch (8), against its plain twin, with dweight's
-    run-to-run equality and dx's spread;
+    run-to-run equality, dx's spread, each of its kernels' device time and
+    the share of dx's contributions that took global atomics;
  4. slices, full width with seeded random weights and synthetic SMPL
     assets. ROMP: HRNet-W32 at 512x512 through the `ROMP` entry point on 4
     images and through `RompPipeline` at batch 16 in four configurations.
@@ -76,7 +77,9 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     steps beside one forward, and the host syncs of one step; TRACE's
     train step at the recipe: s a step, clips/s and frames/s, peak memory,
     device busy / idle and kernels over a profiled step, the deform
-    forward + backward's share, and one clip's peak.
+    forward + backward's share, and one clip's peak; and over one clip's
+    step, the share of the deform backward's dx contributions that took
+    global atomics.
 Then the kernels' JSON line, the card's name and power limit, and the
 result line.
 """
@@ -126,8 +129,8 @@ from romp_tpu_torch.ops.centermap import (  # noqa: E402
     nms_heatmap, nms_heatmap3d, parse_centermap3d,
 )
 from romp_tpu_torch.ops.deform_conv import (  # noqa: E402
-    deform_conv2d, deform_conv2d_backward, deform_conv2d_bwd_plain,
-    deform_conv2d_plain, deform_smem,
+    bwd_global_share, bwd_plan, deform_conv2d, deform_conv2d_backward,
+    deform_conv2d_bwd_plain, deform_conv2d_plain, deform_smem,
 )
 from romp_tpu_torch.ops.fused_chain import (  # noqa: E402
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain, launch_plan,
@@ -164,7 +167,9 @@ from romp_tpu_torch.train.data.video_dataset import (  # noqa: E402
 from romp_tpu_torch.train.priors import GmmPrior  # noqa: E402
 from romp_tpu_torch.train.trainer import Trainer  # noqa: E402
 from romp_tpu_torch.utils.chain_plans import device_events  # noqa: E402
-from romp_tpu_torch.utils.kernel_breakdown import warm_clocks  # noqa: E402
+from romp_tpu_torch.utils.kernel_breakdown import (  # noqa: E402
+    BWD_PREFIX, kernel_us, warm_clocks,
+)
 from romp_tpu_torch.utils.profiling import (  # noqa: E402
     device_profile, seeded_bev_params, seeded_params, seeded_trace_params,
 )
@@ -449,7 +454,7 @@ def chain_row(dev, g, B, C, H, blocks=4):
 
 TENSOR_CORE_KERNELS = ("conv3x3_bn_act_mma_kernel", "skinning_tf32_kernel",
                        "skinning_bwd_tf32_kernel", "deform_conv_tf32_kernel",
-                       "deform_conv_bf16_kernel")
+                       "deform_conv_bf16_kernel", "deform_bwd_tf32_kernel")
 
 
 def tensor_core_sass():
@@ -607,12 +612,15 @@ def deform_row(dev, g):
 
 
 def deform_bwd_row(dev, g, B):
-    """The deform backward kernels at TRACE's shape (C = Cout = 32, 128 x
+    """The deform backward kernel at TRACE's shape (C = Cout = 32, 128 x
     128, G = 8) for B frames, against `deform_conv2d_bwd_plain`: offsets
     sigma 2 (samples cross the border), a random cotangent. Bar 1e-4 of
     max|ref| for each of dx, doffsets and dweight (f32 sums in another
     order); dweight and doffsets bit-equal over two runs (no float
-    atomics), dx's run-to-run spread (its scatter uses atomics)."""
+    atomics), dx's run-to-run spread (its scatter uses atomics); the
+    device time of each of its three kernels (prologue, the one pass, the
+    ordered reduction of dW) and the share of dx's contributions that
+    fell outside the kernel's shared-memory window (global atomics)."""
     C, H, W, G, Cout = (DEFORM[k] for k in ("C", "H", "W", "G", "Cout"))
     x = torch.randn(B, C, H, W, generator=g).to(dev)
     off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
@@ -632,13 +640,15 @@ def deform_bwd_row(dev, g, B):
     # Cout (gcol, dweight: 2 FLOP each), and the bilinear blends and their
     # differences (~22 FLOP). As for the forward, the products are timed
     # at the card's rate for f32-accurate products (split TF32: three
-    # times over at the TF32 rate) whatever units the kernel itself uses
-    # (it runs them on the CUDA cores); `f32_` is the CUDA-core reading
+    # times over at the TF32 rate, as the kernel runs them); `f32_` is the
+    # CUDA-core reading
     products = B * H * W * 9 * C * Cout * 2
     remainder = B * H * W * 9 * C * 22
     nbytes = 4 * (2 * x.numel() + 2 * off.numel() + 2 * w.numel()
                   + gout.numel())
     call = lambda: deform_conv2d_backward(x, off, w, gout, G)  # noqa: E731
+    plan = bwd_plan(B, C, H, W, G, Cout, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     return dict(
         shape=f"B={B},C={C},H=W={H},G={G},Cout={Cout}",
         max_abs_err=float(max((a - r).abs().max() for a, r in zip(got, ref))),
@@ -646,10 +656,15 @@ def deform_bwd_row(dev, g, B):
         dweight_bit_equal=True,
         dx_run_to_run_rel_spread=rel_err(again[0], got[0]),
         ms=time_ms(call),
-        # pass A, pass B and the ordered reduction of pass B's partials
-        device_ms=device_ms(call, {"deform_bwd_input_kernel": 1,
-                                   "deform_bwd_weight_kernel": 1,
-                                   "deform_bwd_weight_reduce_kernel": 1}),
+        # the prologue (x regrouped, dx zeroed, W split), the one pass and
+        # the ordered reduction of the CTAs' dW partials
+        device_ms=device_ms(call, {"deform_bwd_prep_kernel": 1,
+                                   "deform_bwd_tf32_kernel": 1,
+                                   "deform_bwd_reduce_kernel": 1}),
+        device_us_by_kernel=kernel_us(call, BWD_PREFIX),
+        plan={k: plan[k] for k in ("ctas", "wrows", "ey", "ex", "dw_smem",
+                                   "smem")},
+        global_route_share=bwd_global_share(off, G, 1, plan),
         plain_ms=time_ms(lambda: deform_conv2d_bwd_plain(x, off, w, gout, G),
                          reps=5),
         **split_tf32_bounds(nbytes, 2 * products, remainder))
@@ -2006,6 +2021,9 @@ def phase_trace_train_time(dev, ctx, smi):
     ttts.trace_train_step(state, {k: v[:1] for k, v in batch.items()}, cfg)
     torch.cuda.synchronize()
     clip_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    shares = deform_bwd_global_shares(
+        state.net, lambda: ttts.trace_train_step(
+            state, {k: v[:1] for k, v in batch.items()}, cfg), dev)
     row = dict(path="trace-train", clips=TRACE_TRAIN_CLIPS,
                frames_per_clip=TRACE_TRAIN_T, tracks=TRACE_TRAIN_N,
                compute_dtype=cfg.compute_dtype,
@@ -2016,9 +2034,37 @@ def phase_trace_train_time(dev, ctx, smi):
                deform_fwd_bwd_ms=deform_ms,
                deform_fwd_bwd_share=deform_ms
                / prof["device_busy_ms_per_call"],
-               one_clip_peak_gb=clip_peak, card=smi)
+               one_clip_peak_gb=clip_peak,
+               deform_bwd_global_route_share=dict(
+                   mean=statistics.mean(shares), max=max(shares),
+                   calls=len(shares)),
+               card=smi)
     phase(6, "time", **row)
     return row
+
+
+def deform_bwd_global_shares(net, step, dev):
+    """Run step() and, for each call of the net's deform warp, the share of
+    the deform backward's dx contributions that take the global route
+    (`bwd_global_share` of the offsets the warp is given, which
+    `_DeformConv2d` saves for the backward)."""
+    shares = []
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def record(module, args):
+        x, offsets = args[0], args[1]
+        plan = bwd_plan(*x.shape, DEFORM["G"], module.weight.shape[0], sms)
+        shares.append(bwd_global_share(offsets.detach().float(),
+                                       DEFORM["G"], 1, plan))
+
+    hook = net.deform_warper.register_forward_pre_hook(record)
+    try:
+        step()
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+    check(shares, "trace train: no deform warp in the recorded step")
+    return shares
 
 
 def main():

@@ -163,6 +163,27 @@ __device__ __forceinline__ void mma_tf32(float* d, const uint32_t* a,
 // tap * ncb + channel block, k step, n8 tile, lane), b0 = W[co][ci][tap]
 // with co = z*32 + nt*8 + lane/4, ci = cb*32 + ks*8 + lane%4, b1 at ci + 4;
 // zero past C and Cout.
+// element i = (b * G + g) * HW + p of x (B, C, HW) regrouped: x[b, g*Cg +
+// c, p] -> xg[i * Cg + c]
+__device__ __forceinline__ void regroup_x(const float* __restrict__ x,
+                                          float* __restrict__ xg, int i,
+                                          int HW, int Cg) {
+  const int bg = i / HW;      // b * G + g
+  const int p = i - bg * HW;
+  const float* src = x + (size_t)bg * Cg * HW + p;
+  float* dst = xg + (size_t)i * Cg;
+  if (Cg % 4 == 0) {
+    for (int c = 0; c < Cg; c += 4) {
+      reinterpret_cast<float4*>(dst)[c / 4] = make_float4(
+          __ldg(src + (size_t)c * HW), __ldg(src + (size_t)(c + 1) * HW),
+          __ldg(src + (size_t)(c + 2) * HW),
+          __ldg(src + (size_t)(c + 3) * HW));
+    }
+  } else {
+    for (int c = 0; c < Cg; ++c) dst[c] = __ldg(src + (size_t)c * HW);
+  }
+}
+
 __global__ void __launch_bounds__(256)
 deform_prep_kernel(const float* __restrict__ x, float* __restrict__ xg,
                    const float* __restrict__ w, float4* __restrict__ wfrag,
@@ -170,20 +191,7 @@ deform_prep_kernel(const float* __restrict__ x, float* __restrict__ xg,
                    int w_total) {
   int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i < x_total) {
-    const int bg = i / HW;      // b * G + g
-    const int p = i - bg * HW;
-    const float* src = x + (size_t)bg * Cg * HW + p;
-    float* dst = xg + (size_t)i * Cg;
-    if (Cg % 4 == 0) {
-      for (int c = 0; c < Cg; c += 4) {
-        reinterpret_cast<float4*>(dst)[c / 4] = make_float4(
-            __ldg(src + (size_t)c * HW), __ldg(src + (size_t)(c + 1) * HW),
-            __ldg(src + (size_t)(c + 2) * HW),
-            __ldg(src + (size_t)(c + 3) * HW));
-      }
-    } else {
-      for (int c = 0; c < Cg; ++c) dst[c] = __ldg(src + (size_t)c * HW);
-    }
+    regroup_x(x, xg, i, HW, Cg);
     return;
   }
   i -= x_total;
@@ -784,35 +792,154 @@ int launch_bf16(const ArgsBf16& a, dim3 grid, size_t smem,
 // What bounds it, at the train step's clip (B = T = 10, C = Cout = 32,
 // 128 x 128, G = 8): x 21.0 MB, offsets 94.4 MB and gout 21.0 MB read,
 // dx 21.0 MB and doffsets 94.4 MB written, 252 MB: 0.075 ms at 3.35 TB/s.
-// The two contractions (gcol and dW) are 3.0 GFLOP each: 0.090 ms on the
-// CUDA cores in f32, as this kernel does them, so operations bind; on the
-// tensor cores in split TF32 they would take 0.037 ms and bytes would bind.
+// The two contractions (gcol and dW) are 3.0 GFLOP each, 0.037 ms on the
+// tensor cores in split TF32, so bytes bind. PR 8's two-pass CUDA-core
+// kernel took 2.8 ms, 45% of it in 188.7 M scalar global atomics for dx
+// and 35% in its second pass (dW on the CUDA cores, x gathered again);
+// it also read the offsets twice (PERF.md).
 //
-// Design (a simple kernel first; no tensor cores):
-// - pass A (deform_bwd_input_kernel): one thread per (b, tap, pixel). A
-//   CTA's 256 pixels share b and the tap; gout[b, :, pixels] and W[:, :,
-//   tap] sit in shared memory. For each group the thread forms gcol of the
-//   group's channels one at a time, gathers the four corners from x (NCHW),
-//   accumulates the group's two offset gradients (each owned by one thread:
-//   no atomics, one store each) and scatters dx with atomicAdd, as mmcv's
-//   CUDA kernel does (a scatter from arbitrary offsets has no gather form).
-//   dx's sums therefore come in no fixed order: its last bits vary from
-//   run to run.
-// - pass B (deform_bwd_weight_kernel): a CTA takes 32 output x 32 input
-//   channels (all of them at TRACE's shape) over kBwdSub x 128 pixels of
-//   one frame. Per 128 pixels it stages gout (32 x 128) in shared memory
-//   and, tap by tap, the samples S (128 pixels x 32 channels, XOR-swizzled
-//   rows); each thread accumulates a 1 x 4 block of dW for all nine taps in
-//   registers, and the CTA writes its partial sums.
-//   deform_bwd_weight_reduce_kernel adds the tiles' partials in a fixed
-//   order: no float atomics, so dW is bit-equal from run to run.
-constexpr int kBwdPix = 256;              // pass A: pixels per CTA
-constexpr int kBwdSub = 8;                // pass B: 128-pixel sub-tiles
-constexpr int kBwdTile = kBwdSub * 128;   // pass B: pixels per CTA
+// Design: one pass over the data.
+// - A prologue (deform_bwd_prep_kernel) writes x as (B, G, H*W, Cg), as
+//   the forward's does, so that a corner's Cg = 4 channels are one
+//   16-byte load; zeroes dx; and writes W as split TF32 B fragments for
+//   gcol, in the order the MMAs read them.
+// - One CTA an SM (16 warps), persistent: CTA i takes the 16 x 8 pixel
+//   tiles i, i + grid, ... of all frames, a fixed assignment, so that its
+//   dW partial is the same sum every run. Per tile it splits gout's tile
+//   (Cout x 128 pixels, the same for every tap) into TF32 hi and lo in
+//   shared memory once, then runs the tile's chunks, a chunk being one
+//   tap and up to 32 channels of whole groups (a group wider than 32
+//   channels takes several chunks, its doffsets summed across them).
+//   cp.async brings a chunk's offset planes and weight fragments two
+//   chunks ahead. Per chunk:
+//   (a) gcol (warps 8-15, a warp 16 pixels x 32 columns): gout^T . W on
+//       mma.sync.m16n8k8 with the three products lo.hi + hi.lo + hi.hi
+//       (an f32-accurate result; one TF32 product misses the 1e-4 bar),
+//       into shared memory (rows XOR-swizzled);
+//   (b) dW (warps 0-7, a warp a 16 x 8 block of (Cout, chunk columns)
+//       over the 128 pixels): gout . S on the same split-TF32 MMAs, added
+//       to the CTA's partial (in shared memory where it fits, else in
+//       device memory);
+//   (c) sample (all warps, a thread a (pixel, group)): the corners from
+//       the offsets; x gathered once, as float4s; the sample S over gcol
+//       in place; doffsets stored (one writer each); dx's contributions
+//       added to shared-memory windows, those of corners outside them
+//       straight to dx by global atomics.
+//   Buffers rotate over three chunks, so (a) of chunk c + 1, (b) of c - 1
+//   and (c) of c run between the same two barriers, one barrier a chunk.
+// - dx. The card's shared f32 atomics are compare-and-swap loops
+//   (ATOMS.CAST.SPIN in the SASS), which ran the adds no faster than
+//   PR 8's global atomics. So where the channels are one chunk and G is
+//   4, 8 or 16 (TRACE: 8), each warp owns a window: its group's channels
+//   over its rows of pixels +- 4 rows, the tile's columns +- 4 (4 x 12 x
+//   24 floats at TRACE's shape), and adds to it with plain reads and
+//   writes. Two lanes' corners meet only where their top-left corners
+//   are equal or adjacent: barriers between the four corners order the
+//   adjacent ones; equal ones are found by each lane tagging its
+//   top-left corner's cell, and a lane whose tag was overwritten adds to
+//   dx instead (ops/deform_conv.py `bwd_global_share` counts these with
+//   the corners outside the window). Other shapes have no window: every
+//   contribution goes to dx by global atomics. At the end of a tile the
+//   windows are added to dx with 16-byte vector atomics
+//   (red.global.add.v4.f32; scalar where W % 4 != 0).
+// - deform_bwd_reduce_kernel adds the CTAs' dW partials in a fixed order:
+//   dweight and doffsets are bit-equal from run to run; dx, summed by
+//   atomics, varies in its last bits.
+// Where the time goes (PERF.md, B = 10): the dx adds a third, the
+// contractions a quarter, the gathers a fifth; one CTA of 16 warps an SM
+// (the windows, gout's tile and three chunks' buffers take 220 KB)
+// leaves the tensor cores and the gathers' latency poorly overlapped.
+// Measurement builds only (utils/kernel_breakdown.py): -DROMP_DEFORM_BWD_SKIP=
+// mask leaves out the samples' adds to dx (1), the gathers of x (2: the
+// corners' weights stand in for the values), the contractions (4: no
+// gcol, no dW), the windows' flush into dx (8), or the tags and barriers
+// that order a warp's plain adds to its window (16). The results of such
+// a build are wrong.
+#ifndef ROMP_DEFORM_BWD_SKIP
+#define ROMP_DEFORM_BWD_SKIP 0
+#endif
+constexpr int kBwdSkip = ROMP_DEFORM_BWD_SKIP;
+constexpr int kBwdThreads = 512;   // 16 warps: 0-7 dW, 8-15 gcol
+constexpr int kGcolWarp0 = 8;
 
-// A sample's corners for the backward: clamped indices, the fractions and
-// their complements, and each corner's inside flag.
+// Chunk cb of a tap: its first channel, width, groups (the first and how
+// many), the first channel within the group, and whether it ends the group.
+struct BwdChunk {
+  int ci0, width, g_first, ng, cg0;
+  bool last;
+};
+
+int bwd_chunks_a_tap(int C, int Cg) {
+  const int G = C / Cg;
+  return Cg <= kCols ? (G + kCols / Cg - 1) / (kCols / Cg)
+                     : G * ((Cg + kCols - 1) / kCols);
+}
+
+__device__ __forceinline__ BwdChunk bwd_chunk(int cb, int C, int Cg) {
+  BwdChunk r;
+  if (Cg <= kCols) {
+    const int gpc = kCols / Cg;
+    r.g_first = cb * gpc;
+    r.ci0 = r.g_first * Cg;
+    r.width = min(gpc * Cg, C - r.ci0);
+    r.ng = r.width / Cg;
+    r.cg0 = 0;
+    r.last = true;
+  } else {
+    const int per = (Cg + kCols - 1) / kCols;
+    r.g_first = cb / per;
+    const int j = cb - r.g_first * per;
+    r.cg0 = kCols * j;
+    r.ci0 = r.g_first * Cg + r.cg0;
+    r.width = min(kCols, Cg - r.cg0);
+    r.ng = 1;
+    r.last = j == per - 1;
+  }
+  return r;
+}
+
+// The prologue: threads below x_total regroup x as deform_prep_kernel does
+// and zero dx at the same elements; the others write the split B fragments
+// of W for gcol = gout^T . W, one float4 (b0 hi, b1 hi, b0 lo, b1 lo) per
+// (chunk c = tap * ncb + cb, k step ks of 8 output channels, n8 tile nt of
+// the chunk's columns, lane): b0 = W[o][ci][tap] with o = ks*8 + lane%4,
+// ci = ci0 + nt*8 + lane/4, b1 at o + 4; zero past Cout and the chunk.
+__global__ void __launch_bounds__(256)
+deform_bwd_prep_kernel(const float* __restrict__ x, float* __restrict__ xg,
+                       float* __restrict__ dx, const float* __restrict__ w,
+                       float4* __restrict__ wfrag, int HW, int Cg,
+                       int x_total, int C, int cout, int ncb, int nko,
+                       int w_total) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < x_total) {
+    regroup_x(x, xg, i, HW, Cg);
+    const int bg = i / HW;
+    float* d = dx + (size_t)bg * Cg * HW + (i - bg * HW);
+    for (int c = 0; c < Cg; ++c) d[(size_t)c * HW] = 0.f;
+    return;
+  }
+  i -= x_total;
+  if (i >= w_total) return;
+  const int ln = i & 31, nt = (i >> 5) & 3, rest = i >> 7;
+  const int ks = rest % nko, c = rest / nko;
+  const int k = c / ncb;
+  const BwdChunk ch = bwd_chunk(c - k * ncb, C, Cg);
+  const int col = nt * 8 + (ln >> 2);
+  const int ci = ch.ci0 + col;
+  const int o = ks * 8 + (ln & 3);
+  const bool in = col < ch.width;
+  const float w0 = in && o < cout
+      ? __ldg(w + ((size_t)o * C + ci) * kTaps + k) : 0.f;
+  const float w1 = in && o + 4 < cout
+      ? __ldg(w + ((size_t)(o + 4) * C + ci) * kTaps + k) : 0.f;
+  const float h0 = hi_of(w0), h1 = hi_of(w1);
+  wfrag[i] = make_float4(h0, h1, lo_of(w0, h0), lo_of(w1, h1));
+}
+
+// A sample's corners for the backward: the top-left corner, clamped
+// indices, the fractions and their complements, each corner's inside flag.
 struct GradCorners {
+  int y0, x0;
   int i00, i01, i10, i11;
   float ly, lx, hy, hx;
   bool v00, v01, v10, v11;
@@ -831,6 +958,8 @@ __device__ __forceinline__ GradCorners grad_corners(float ys, float xs,
   r.hy = 1.f - r.ly;
   r.hx = 1.f - r.lx;
   const int y0 = (int)y0f, x0 = (int)x0f;
+  r.y0 = y0;
+  r.x0 = x0;
   const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
   const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
   r.v00 = vy0 && vx0;
@@ -846,166 +975,567 @@ __device__ __forceinline__ GradCorners grad_corners(float ys, float xs,
   return r;
 }
 
-size_t bwd_input_smem(int C, int cout) {
-  return (size_t)cout * (kBwdPix + C) * 4;
+__device__ __forceinline__ void red_add_v4(float* dst, float4 v) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"l"(dst),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
 }
 
-// pass A: grid (ceil(HW / 256), B * 9); dx zeroed before
-__global__ void __launch_bounds__(kBwdPix)
-deform_bwd_input_kernel(const float* __restrict__ x,
-                        const float* __restrict__ off,
-                        const float* __restrict__ w,
-                        const float* __restrict__ gout,
-                        float* __restrict__ dx, float* __restrict__ doff,
-                        int C, int H, int W, int G, int cout, int pad) {
-  extern __shared__ float bsm[];
-  float* gs = bsm;                       // [cout][kBwdPix]
-  float* ws = bsm + cout * kBwdPix;      // [cout][C] at this tap
-  const int HW = H * W;
-  const int b = blockIdx.y / kTaps, k = blockIdx.y % kTaps;
-  const int p0 = blockIdx.x * kBwdPix;
-  const int tid = threadIdx.x;
-  const float* gb = gout + (size_t)b * cout * HW;
-  for (int i = tid; i < cout * kBwdPix; i += kBwdPix) {
-    const int o = i / kBwdPix, q = p0 + i % kBwdPix;
-    gs[i] = q < HW ? __ldg(gb + (size_t)o * HW + q) : 0.f;
-  }
-  for (int i = tid; i < cout * C; i += kBwdPix) {
-    ws[i] = __ldg(w + (size_t)i * kTaps + k);
-  }
-  __syncthreads();
-  const int p = p0 + tid;
-  if (p >= HW) return;
-  const int Cg = C / G;
-  const float yb = (float)(p / W + k / 3 - pad);
-  const float xb = (float)(p % W + k % 3 - pad);
-  const size_t off_b = (size_t)b * G * 2 * kTaps * HW + p;
-  const float* xbat = x + (size_t)b * C * HW;
-  float* dxbat = dx + (size_t)b * C * HW;
-  for (int g = 0; g < G; ++g) {
-    const size_t ch = (size_t)(g * kTaps + k) * 2;
-    const GradCorners r =
-        grad_corners(yb + __ldg(off + off_b + ch * HW),
-                     xb + __ldg(off + off_b + (ch + 1) * HW), H, W);
-    float dly = 0.f, dlx = 0.f;
-    for (int c = 0; c < Cg; ++c) {
-      const int ci = g * Cg + c;
-      float gc = 0.f;
-#pragma unroll 8
-      for (int o = 0; o < cout; ++o) {
-        gc += ws[o * C + ci] * gs[o * kBwdPix + tid];
+struct BwdArgs {
+  const float* xg;      // (B, G, HW, Cg)
+  const float* off;     // (B, G * 18, HW)
+  const float* gout;    // (B, Cout, HW)
+  const float4* wfrag;  // see deform_bwd_prep_kernel
+  float* dx;            // (B, C, HW), zeroed by the prologue
+  float* doff;          // (B, G * 18, HW)
+  float* partial;       // (CTAs, chunks, cout16, 32): the dW partials
+  int B, C, H, W, G, Cg, cout, pad;
+  int ncb, nko, cout16, ngc;   // chunks a tap, gcol's k steps, Cout to 16,
+                               // groups a chunk at most
+  int ey, ex, wr, wc;   // the dx windows, one a warp, of its group's
+                        // channels: wr rows from its first row - ey, wc
+                        // columns from tx0 - ex (wr = wc = 0: none)
+  int wrows;            // pixel rows a warp (with windows)
+  int dw_smem;          // the dW partial in shared memory (else `partial`)
+  int vec_dx;           // W % 4 == 0: the windows flushed by float4s
+};
+
+// the floats of the warps' dx windows, and of their tags: an int a cell
+// of the window's plane grown by one row and column up and left
+__host__ __device__ __forceinline__ int bwd_window_floats(int Cg, int wr,
+                                                          int wc) {
+  return kBwdThreads / 32 * Cg * wr * wc;
+}
+
+__host__ __device__ __forceinline__ int bwd_tag_floats(int wr, int wc) {
+  return wr ? kBwdThreads / 32 * (wr + 1) * (wc + 1) : 0;
+}
+
+size_t bwd_smem_floats(int cout16, int nko, int ngc, int win_floats,
+                       int nc, int dw_smem) {
+  return (size_t)2 * cout16 * kPix + 3 * kPix * kCols + 3 * 2 * ngc * kPix +
+         (size_t)3 * nko * 128 * 4 + win_floats +
+         (dw_smem ? (size_t)nc * cout16 * kCols : 0);
+}
+
+// The backward's launch plan (exported as romp_deform_conv2d_bwd_plan):
+// `ctas` persistent CTAs (at most one an SM and one a tile); where the
+// channels are one chunk and G is 4, 8 or 16, the dx windows of each warp's
+// wrows rows of the tile +- ey rows and the tile's columns +- ex, the
+// largest of kBwdWindows that fits (ey < 0: none; other shapes have none);
+// the dW partial in shared memory (dw_smem) where it fits too. smem in
+// bytes; scratch: the floats of the caller's scratch (the weight
+// fragments, x regrouped, the CTAs' dW partials). False for shapes whose
+// smallest plan does not fit.
+struct BwdPlan {
+  int ncb, nko, cout16, ngc;
+  int ctas, ey, ex, wrows, wr, wc, dw_smem;
+  size_t smem;
+  long long scratch;
+};
+
+constexpr int kBwdWindows[][2] = {{4, 4}, {2, 4}, {0, 4}, {0, 0}, {-1, -1}};
+
+bool bwd_plan(int b, int c, int h, int wd, int g, int cout, int sms,
+              BwdPlan* p) {
+  const int cg = c / g;
+  p->ncb = bwd_chunks_a_tap(c, cg);
+  p->nko = (cout + 7) / 8;
+  p->cout16 = (cout + 15) / 16 * 16;
+  p->ngc = cg <= kCols ? (g < kCols / cg ? g : kCols / cg) : 1;
+  const int nc = kTaps * p->ncb;
+  const long long tiles =
+      (long long)b * ((h + kTH - 1) / kTH) * ((wd + kTW - 1) / kTW);
+  p->ctas = (int)(tiles < sms ? tiles : sms);
+  // a window a warp takes one chunk a tap and 16 / G warps a group, each
+  // over 8 * G / 16 >= 2 rows of the tile
+  const bool own = p->ncb == 1 && (g == 4 || g == 8 || g == 16);
+  p->wrows = own ? kTH * g / (kBwdThreads / 32) : kTH;
+  for (int i = own ? 0 : 4; i < 5; ++i) {
+    p->ey = kBwdWindows[i][0];
+    p->ex = kBwdWindows[i][1];
+    p->wr = p->ey < 0 ? 0 : p->wrows + 2 * p->ey;
+    p->wc = p->ex < 0 ? 0 : kTW + 2 * p->ex;
+    for (p->dw_smem = 1; p->dw_smem >= 0; --p->dw_smem) {
+      p->smem = 4 * bwd_smem_floats(
+          p->cout16, p->nko, p->ngc,
+          bwd_window_floats(cg, p->wr, p->wc) + bwd_tag_floats(p->wr, p->wc),
+          nc, p->dw_smem);
+      if (p->smem <= (size_t)kMaxSmem) {
+        p->scratch = (long long)nc * p->nko * 128 * 4 +
+                     (long long)b * c * h * wd +
+                     (long long)p->ctas * nc * p->cout16 * kCols;
+        return true;
       }
-      const float* xc = xbat + (size_t)ci * HW;
-      const float v00 = r.v00 ? __ldg(xc + r.i00) : 0.f;
-      const float v01 = r.v01 ? __ldg(xc + r.i01) : 0.f;
-      const float v10 = r.v10 ? __ldg(xc + r.i10) : 0.f;
-      const float v11 = r.v11 ? __ldg(xc + r.i11) : 0.f;
-      dly += gc * (r.hx * (v10 - v00) + r.lx * (v11 - v01));
-      dlx += gc * (r.hy * (v01 - v00) + r.ly * (v11 - v10));
-      float* dxc = dxbat + (size_t)ci * HW;
-      if (r.v00) atomicAdd(dxc + r.i00, r.hy * r.hx * gc);
-      if (r.v01) atomicAdd(dxc + r.i01, r.hy * r.lx * gc);
-      if (r.v10) atomicAdd(dxc + r.i10, r.ly * r.hx * gc);
-      if (r.v11) atomicAdd(dxc + r.i11, r.ly * r.lx * gc);
     }
-    doff[off_b + ch * HW] = dly;
-    doff[off_b + (ch + 1) * HW] = dlx;
   }
+  return false;
 }
 
-// pass B: grid (tiles = ceil(HW / kBwdTile), B, ceil(cout/32) *
-// ceil(C/32)); partial[(b * tiles + tile)][co][ci][k]
-__global__ void __launch_bounds__(256)
-deform_bwd_weight_kernel(const float* __restrict__ x,
-                         const float* __restrict__ off,
-                         const float* __restrict__ gout,
-                         float* __restrict__ partial, int C, int H, int W,
-                         int G, int cout, int pad) {
-  __shared__ float gs[32][129];                  // gout, padded rows
-  __shared__ __align__(16) float ss[128 * 32];   // S, swizzled rows
-  const int HW = H * W;
-  const int tile = blockIdx.x, b = blockIdx.y;
-  const int ncb = (C + 31) / 32;
-  const int co0 = (blockIdx.z / ncb) * 32, ci0 = (blockIdx.z % ncb) * 32;
+// G (gout's tile, hi and lo) element (o, p) sits at o * kPix + (p ^ gswz(o)):
+// ldmatrix's 8 rows at one column quad are conflict-free
+__device__ __forceinline__ int gswz(int o) { return (o & 7) << 2; }
+// the dW partial's element (o, col) at o * kCols + (col ^ dswz(o))
+__device__ __forceinline__ int dswz(int o) { return (o & 3) << 3; }
+
+// kCg: the group width when it is 4 (TRACE), else 0 (read at run time).
+// kVec: floats per cp.async of the offset planes (4 where W % 4 == 0).
+template <int kCg, int kVec>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+deform_bwd_tf32_kernel(BwdArgs a) {
+  extern __shared__ float4 bsm4[];
+  float* ghi = reinterpret_cast<float*>(bsm4);       // [cout16][kPix]
+  float* glo = ghi + a.cout16 * kPix;                 // [cout16][kPix]
+  float* gs = glo + a.cout16 * kPix;                  // [3][kPix][kCols]
+  float* obuf = gs + 3 * kPix * kCols;                // [3][2 * ngc][kPix]
+  float4* wbuf = reinterpret_cast<float4*>(obuf + 3 * 2 * a.ngc * kPix);
+  const int wfrags = a.nko * 128;                     // float4s a chunk
+  const int Cg = kCg ? kCg : a.Cg;
+  const int win_floats = bwd_window_floats(Cg, a.wr, a.wc);
+  float* win = reinterpret_cast<float*>(wbuf + 3 * wfrags);
+  // [warps][Cg][wr][wc], then the tags [warps][wr + 1][wc + 1]
+  int* tags = reinterpret_cast<int*>(win + win_floats);
+  // [nc][cout16][kCols]
+  float* dwa = win + win_floats + bwd_tag_floats(a.wr, a.wc);
+
+  const bool quad = Cg % 4 == 0;
+  const int HW = a.H * a.W;
+  const int tiles_w = (a.W + kTW - 1) / kTW;
+  const int tpf = (a.H + kTH - 1) / kTH * tiles_w;
+  const int ntiles = a.B * tpf;
+  const int nc = kTaps * a.ncb;
   const int tid = threadIdx.x;
-  const int Cg = C / G;
-  const int co_l = tid >> 3, cq = (tid & 7) * 4;   // this thread's dW block
-  const int px = tid & 127, half = tid >> 7;       // its samples
-  const float* gb = gout + (size_t)b * cout * HW;
-  const float* offb = off + (size_t)b * G * 2 * kTaps * HW;
-  const float* xbat = x + (size_t)b * C * HW;
-  float acc[kTaps][4] = {};
-  for (int s = 0; s < kBwdSub; ++s) {
-    const int p0 = tile * kBwdTile + s * 128;
-    if (p0 >= HW) break;            // the same for the whole CTA
-    __syncthreads();                // the last sub-tile's reads are done
-    for (int i = tid; i < 32 * 128; i += 256) {
-      const int o = i >> 7, q = p0 + (i & 127);
-      gs[o][i & 127] = co0 + o < cout && q < HW
-          ? __ldg(gb + (size_t)(co0 + o) * HW + q) : 0.f;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int per_cta = nc * a.cout16 * kCols;
+  float* dwacc = a.dw_smem ? dwa : a.partial + (size_t)blockIdx.x * per_cta;
+  for (int i = tid; i < win_floats; i += kBwdThreads) win[i] = 0.f;
+  for (int i = tid; i < per_cta; i += kBwdThreads) dwacc[i] = 0.f;
+
+  int b = 0, ty0 = 0, tx0 = 0;   // the tile
+  float cy = 0.f, cx = 0.f;      // doffsets of a group wider than a chunk
+
+  // chunk c's offset planes (dy, dx of its groups) -> obuf[c % 3], its
+  // weight fragments -> wbuf[c % 3]
+  auto load = [&](int c) {
+    const int k = c / a.ncb;
+    const BwdChunk ch = bwd_chunk(c - k * a.ncb, a.C, Cg);
+    const float* offb = a.off + (size_t)b * a.G * 2 * kTaps * HW;
+    float* dst = obuf + (c % 3) * 2 * a.ngc * kPix;
+    const int per_plane = kPix / kVec;
+    const int n = ch.ng * 2 * per_plane;
+    for (int i = tid; i < n; i += kBwdThreads) {
+      const int plane = i / per_plane;
+      const int e = (i - plane * per_plane) * kVec;
+      const int chn = ((ch.g_first + plane / 2) * kTaps + k) * 2 + (plane & 1);
+      const int y = ty0 + e / kTW, x = tx0 + e % kTW;
+      const bool ok = y < a.H && x < a.W;   // W % kVec == 0: all in or out
+      cp_async<4 * kVec>(smem_addr(dst + plane * kPix + e),
+                         ok ? offb + (size_t)chn * HW + y * a.W + x : a.off,
+                         ok);
     }
-    const int p = p0 + px;
-    const bool in = p < HW;
-    const int py = in ? p / W : 0, pxx = in ? p % W : 0;
+    const float4* wsrc = a.wfrag + (size_t)c * wfrags;
+    for (int i = tid; i < wfrags; i += kBwdThreads) {
+      cp_async<16>(smem_addr(wbuf + (c % 3) * wfrags + i), wsrc + i, true);
+    }
+  };
+
+  // (a) gcol of chunk c -> gs[c % 3]: this warp's 16 pixels x 32 columns
+  auto gcol = [&](int c) {
+    if (kBwdSkip & 4) return;
+    const int p0 = (warp - kGcolWarp0) * 16 + g8, p1 = p0 + 8;
+    // hi.hi and the two cross products in chains of their own (shorter
+    // dependency chains through the MMAs)
+    float acc[4][4] = {}, accx[4][4] = {};
+    const float4* wd = wbuf + (c % 3) * wfrags + lane;
+    for (int ks = 0; ks < a.nko; ++ks) {
+      // A = G^T: a0 (pixel g, o t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4)
+      const int o0 = ks * 8 + t4, o1 = o0 + 4;
+      const int r0 = o0 * kPix, r1 = o1 * kPix;
+      const int s0 = gswz(o0), s1 = gswz(o1);
+      const int e[4] = {r0 + (p0 ^ s0), r0 + (p1 ^ s0), r1 + (p0 ^ s1),
+                        r1 + (p1 ^ s1)};
+      uint32_t ah[4], al[4];
 #pragma unroll
-    for (int k = 0; k < kTaps; ++k) {
-      const float yb = (float)(py + k / 3 - pad);
-      const float xb = (float)(pxx + k % 3 - pad);
-      __syncthreads();              // the last tap's S is read
-      // this thread's 16 columns, half * 16 on; the corners once a group
-      int last_g = -1;
-      Corners r{};
-      for (int col = half * 16; col < half * 16 + 16; ++col) {
-        const int ci = ci0 + col;
-        float v = 0.f;
-        if (in && ci < C) {
-          const int g = ci / Cg;
-          if (g != last_g) {
-            const size_t ch = (size_t)(g * kTaps + k) * 2;
-            r = corners(yb + __ldg(offb + ch * HW + p),
-                        xb + __ldg(offb + (ch + 1) * HW + p), H, W);
-            last_g = g;
-          }
-          const float* xc = xbat + (size_t)ci * HW;
-          v = r.w00 * __ldg(xc + r.i00) + r.w01 * __ldg(xc + r.i01) +
-              r.w10 * __ldg(xc + r.i10) + r.w11 * __ldg(xc + r.i11);
+      for (int r = 0; r < 4; ++r) {
+        ah[r] = __float_as_uint(ghi[e[r]]);
+        al[r] = __float_as_uint(glo[e[r]]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float4 bw = wd[(ks * 4 + nt) * 32];
+        const uint32_t bh0 = __float_as_uint(bw.x);
+        const uint32_t bh1 = __float_as_uint(bw.y);
+        mma_tf32(accx[nt], al, bh0, bh1);
+        mma_tf32(accx[nt], ah, __float_as_uint(bw.z), __float_as_uint(bw.w));
+        mma_tf32(acc[nt], ah, bh0, bh1);
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[nt][r] += accx[nt][r];
+    }
+    // acc[nt]: 0 (pixel g, column 2t), 1 (g, 2t+1), 2 (g+8, 2t), 3 (g+8,
+    // 2t+1); the XOR keeps a column pair together
+    float* sc = gs + (c % 3) * kPix * kCols;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      const int col = nt * 8 + 2 * t4;
+      *reinterpret_cast<float2*>(sc + p0 * kCols + (col ^ swz(p0))) =
+          make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(sc + p1 * kCols + (col ^ swz(p1))) =
+          make_float2(acc[nt][2], acc[nt][3]);
+    }
+  };
+
+  // (c) chunk c's samples: S over gcol in gs[c % 3], doffsets, dx
+  auto sample = [&](int c) {
+    const int k = c / a.ncb;
+    const int ky = k / 3, kx = k - ky * 3;
+    const BwdChunk ch = bwd_chunk(c - k * a.ncb, a.C, Cg);
+    const int nch = Cg <= kCols ? Cg : ch.width;   // channels an item
+    const float* ob = obuf + (c % 3) * 2 * a.ngc * kPix;
+    float* sc = gs + (c % 3) * kPix * kCols;
+    const int wplane = a.wr * a.wc;
+    float* dxb = a.dx + (size_t)b * a.C * HW;
+    // item (pixel p, group gl of the chunk); wb: the window it adds to,
+    // whose rows start at wy0 and channels at wci0
+    auto item = [&](int p, int gl, float* wb, int* tg, int wy0, int wci0) {
+      const int py = ty0 + p / kTW, px = tx0 + p % kTW;
+      // outside the image: gcol, so S, stays 0; a warp's lanes stay
+      // together for the window's tags below
+      const bool live = py < a.H && px < a.W;
+      const int g = ch.g_first + gl;
+      const GradCorners r =
+          grad_corners((float)(py + ky - a.pad) + ob[2 * gl * kPix + p],
+                       (float)(px + kx - a.pad) + ob[(2 * gl + 1) * kPix + p],
+                       a.H, a.W);
+      const bool v[4] = {live && r.v00, live && r.v01, live && r.v10,
+                         live && r.v11};
+      const float wt[4] = {v[0] ? r.hy * r.hx : 0.f, v[1] ? r.hy * r.lx : 0.f,
+                           v[2] ? r.ly * r.hx : 0.f, v[3] ? r.ly * r.lx : 0.f};
+      const int idx[4] = {r.i00, r.i01, r.i10, r.i11};
+      // corner e's element in the window (pos), where it is in it (in_w)
+      const int wr0 = r.y0 - wy0, wc0 = r.x0 - (tx0 - a.ex);
+      int pos[4];
+      bool in_w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int wrr = wr0 + (e >> 1), wcc = wc0 + (e & 1);
+        in_w[e] = wt[e] != 0.f && (unsigned)wrr < (unsigned)a.wr &&
+                  (unsigned)wcc < (unsigned)a.wc;
+        pos[e] = wrr * a.wc + wcc;
+      }
+      // In the window, this warp's own, the lanes add with plain reads and
+      // writes. Two lanes' corners e and e' meet only where their
+      // top-left corners are equal or adjacent: adjacent ones meet at
+      // different corners, which barriers between the corners order;
+      // equal ones are found by tagging the top-left corner's cell with
+      // the lane: a lane whose tag was overwritten sends its adds to dx
+      // instead.
+      const bool tagged = a.wr && !(kBwdSkip & 16);
+      bool owner = true;
+      if (tagged) {
+        const bool any_in = in_w[0] || in_w[1] || in_w[2] || in_w[3];
+        const int cell = (wr0 + 1) * (a.wc + 1) + wc0 + 1;   // >= 0 then
+        if (any_in) tg[cell] = lane;
+        __syncwarp();
+        owner = !any_in || tg[cell] == lane;
+      }
+      // the n <= 4 contributions val of corner e to channels ci..: to the
+      // window, or straight to dx
+      auto scatter = [&](int e, int ci, const float* val, int n) {
+        if (kBwdSkip & 1 || wt[e] == 0.f) return;
+        if (in_w[e] && owner) {
+          float* wp = wb + (ci - wci0) * wplane + pos[e];
+          float o[4];
+          for (int j = 0; j < n; ++j) o[j] = wp[j * wplane];
+          for (int j = 0; j < n; ++j) wp[j * wplane] = o[j] + val[j];
+        } else {
+          float* d = dxb + (size_t)ci * HW + idx[e];
+          for (int j = 0; j < n; ++j) atomicAdd(d + (size_t)j * HW, val[j]);
         }
-        ss[px * 32 + (col ^ swz(px))] = v;
+      };
+      const float* xgp = a.xg + ((size_t)b * a.G + g) * HW * Cg + ch.cg0;
+      const int col0 = gl * nch;
+      float dly = 0.f, dlx = 0.f;
+      if (quad) {
+        for (int q = 0; q < nch; q += 4) {
+          const int col = col0 + q;
+          float4* sp = reinterpret_cast<float4*>(sc + p * kCols +
+                                                 (col ^ swz(p)));
+          const float4 gc = *sp;
+          float4 cv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            cv[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+            if (kBwdSkip & 2) {
+              cv[e] = make_float4(wt[e], wt[e], wt[e], wt[e]);
+            } else if (v[e]) {
+              cv[e] = __ldg(reinterpret_cast<const float4*>(
+                  xgp + (size_t)idx[e] * Cg + q));
+            }
+          }
+          const float g4[4] = {gc.x, gc.y, gc.z, gc.w};
+          const float x00[4] = {cv[0].x, cv[0].y, cv[0].z, cv[0].w};
+          const float x01[4] = {cv[1].x, cv[1].y, cv[1].z, cv[1].w};
+          const float x10[4] = {cv[2].x, cv[2].y, cv[2].z, cv[2].w};
+          const float x11[4] = {cv[3].x, cv[3].y, cv[3].z, cv[3].w};
+          float s[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            s[j] = wt[0] * x00[j] + wt[1] * x01[j] + wt[2] * x10[j] +
+                   wt[3] * x11[j];
+            dly += g4[j] * (r.hx * (x10[j] - x00[j]) +
+                            r.lx * (x11[j] - x01[j]));
+            dlx += g4[j] * (r.hy * (x01[j] - x00[j]) +
+                            r.ly * (x11[j] - x10[j]));
+          }
+          if (live) *sp = make_float4(s[0], s[1], s[2], s[3]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float val[4] = {wt[e] * g4[0], wt[e] * g4[1],
+                                  wt[e] * g4[2], wt[e] * g4[3]};
+            scatter(e, ch.ci0 + col, val, 4);
+            if (tagged && e < 3) __syncwarp();
+          }
+        }
+      } else {
+        for (int q = 0; q < nch; ++q) {
+          const int col = col0 + q;
+          float* sp = sc + p * kCols + (col ^ swz(p));
+          const float gc = *sp;
+          float xv[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            xv[e] = kBwdSkip & 2 ? wt[e]
+                : v[e] ? __ldg(xgp + (size_t)idx[e] * Cg + q) : 0.f;
+          }
+          dly += gc * (r.hx * (xv[2] - xv[0]) + r.lx * (xv[3] - xv[1]));
+          dlx += gc * (r.hy * (xv[1] - xv[0]) + r.ly * (xv[3] - xv[2]));
+          if (live) {
+            *sp = wt[0] * xv[0] + wt[1] * xv[1] + wt[2] * xv[2] +
+                  wt[3] * xv[3];
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float val = wt[e] * gc;
+            scatter(e, ch.ci0 + col, &val, 1);
+            if (tagged && e < 3) __syncwarp();
+          }
+        }
       }
-      __syncthreads();              // S and gout are in
-      const float* grow = gs[co_l];
-#pragma unroll 4
-      for (int q = 0; q < 128; ++q) {
-        const float gv = grow[q];
-        const float4 sv =
-            *reinterpret_cast<const float4*>(ss + q * 32 + (cq ^ swz(q)));
-        acc[k][0] += gv * sv.x;
-        acc[k][1] += gv * sv.y;
-        acc[k][2] += gv * sv.z;
-        acc[k][3] += gv * sv.w;
+      if (!live) return;
+      if (Cg > kCols) {   // one item a thread: carry the group's sums
+        if (ch.cg0 == 0) cy = cx = 0.f;
+        cy += dly;
+        cx += dlx;
+        if (!ch.last) return;
+        dly = cy;
+        dlx = cx;
+      }
+      float* dof = a.doff + (((size_t)b * a.G + g) * kTaps + k) * 2 * HW +
+                   py * a.W + px;
+      dof[0] = dly;
+      dof[HW] = dlx;
+    };
+    if (a.wr) {
+      // warp w: group w % ng, the pixel rows from (w / ng) * wrows, a
+      // window of its own (the chunk is all C channels: ncb == 1, ng == G)
+      const int gl = warp % ch.ng, rb = warp / ch.ng;
+      float* wb = win + warp * Cg * wplane;
+      int* tg = tags + warp * (a.wr + 1) * (a.wc + 1);
+      for (int j = 0; j < a.wrows * kTW / 32; ++j) {
+        item(rb * a.wrows * kTW + 32 * j + lane, gl, wb, tg,
+             ty0 + rb * a.wrows - a.ey, gl * Cg);
+      }
+    } else {   // no window: every item's adds go to dx
+      for (int it = tid; it < ch.ng * kPix; it += kBwdThreads) {
+        item(it % kPix, it / kPix, win, tags, 0, 0);
       }
     }
+  };
+
+  // (b) dW of chunk c += gout . S: this warp's 16 x 8 blocks of (Cout,
+  // columns), the 128 pixels as K
+  auto dweight = [&](int c) {
+    if (kBwdSkip & 4) return;
+    const float* sc = gs + (c % 3) * kPix * kCols;
+    float* dst = dwacc + (size_t)c * a.cout16 * kCols;
+    const int njobs = a.cout16 / 16 * 4;
+    for (int job = warp; job < njobs; job += kGcolWarp0) {
+      const int mt = job >> 2, nt = job & 3;
+      // ldmatrix rows: lanes 0-15 rows 0-15 of the block at pixels 0-3 of
+      // the k step, lanes 16-31 at pixels 4-7: a0..a3 of the A fragment
+      const int lrow = mt * 16 + (lane & 15);
+      const int lcol = (lane >> 4) * 4;
+      const uint32_t hb = smem_addr(ghi + lrow * kPix);
+      const uint32_t lb = smem_addr(glo + lrow * kPix);
+      const int sw = gswz(lrow);
+      const int ci = nt * 8 + g8;
+      // this warp's elements of the partial (device memory where it does
+      // not fit shared memory: read before the MMAs, which hide the wait);
+      // acc: 0 (o g, column 2t), 1 (g, 2t+1), 2 (g+8, 2t), 3 (g+8, 2t+1);
+      // each element has this one owner: no atomics
+      const int o = mt * 16 + g8, col = nt * 8 + 2 * t4;
+      float2* d0 = reinterpret_cast<float2*>(dst + o * kCols +
+                                             (col ^ dswz(o)));
+      float2* d1 = reinterpret_cast<float2*>(dst + (o + 8) * kCols +
+                                             (col ^ dswz(o)));
+      float2 u = *d0, v = *d1;
+      // hi.hi and the cross products of even and odd k steps in four
+      // chains: one chain of 48 dependent MMAs would wait on each
+      float acc[2][4] = {}, accx[2][4] = {};
+      auto kstep = [&](int ks, float* ah_acc, float* ax_acc) {
+        uint32_t ah[4], al[4];
+        const uint32_t at = ((ks * 8 + lcol) ^ sw) * 4;
+        ldmatrix_x4(hb + at, ah);
+        ldmatrix_x4(lb + at, al);
+        // B = S: b0 (pixel t, column g), b1 (pixel t+4, column g)
+        const int pk = ks * 8 + t4;
+        const float v0 = sc[pk * kCols + (ci ^ swz(pk))];
+        const float v1 = sc[(pk + 4) * kCols + (ci ^ swz(pk + 4))];
+        const uint32_t bh0 = tf32(v0), bh1 = tf32(v1);
+        mma_tf32(ax_acc, al, bh0, bh1);
+        mma_tf32(ax_acc, ah, tf32(v0 - __uint_as_float(bh0)),
+                 tf32(v1 - __uint_as_float(bh1)));
+        mma_tf32(ah_acc, ah, bh0, bh1);
+      };
+#pragma unroll 2
+      for (int ks = 0; ks < kPix / 8; ks += 2) {
+        kstep(ks, acc[0], accx[0]);
+        kstep(ks + 1, acc[1], accx[1]);
+      }
+      u.x += (acc[0][0] + acc[1][0]) + (accx[0][0] + accx[1][0]);
+      u.y += (acc[0][1] + acc[1][1]) + (accx[0][1] + accx[1][1]);
+      v.x += (acc[0][2] + acc[1][2]) + (accx[0][2] + accx[1][2]);
+      v.y += (acc[0][3] + acc[1][3]) + (accx[0][3] + accx[1][3]);
+      *d0 = u;
+      *d1 = v;
+    }
+  };
+
+  // the windows into dx, and zeroed for the next tile
+  auto flush = [&]() {
+    if (kBwdSkip & 8) return;
+    float* dxb = a.dx + (size_t)b * a.C * HW;
+    const int vec = a.vec_dx ? 4 : 1;
+    const int nq = a.wc / vec;            // float4s (or floats) a row
+    for (int i = tid; i < win_floats / vec; i += kBwdThreads) {
+      const int q = i % nq, row = i / nq;   // row of [warps][Cg][wr]
+      const int wn = row / a.wr / Cg, cl = row / a.wr - wn * Cg;
+      const int ci = wn % a.G * Cg + cl;    // warp wn's group is wn % G
+      const int y = ty0 + wn / a.G * a.wrows - a.ey + row % a.wr;
+      const int x = tx0 - a.ex + vec * q;
+      float* wp = win + row * a.wc + vec * q;
+      const bool in = y >= 0 && y < a.H && x >= 0 && x < a.W;
+      float* d = dxb + (size_t)ci * HW + y * a.W + x;
+      if (a.vec_dx) {   // W % 4 == 0 and x % 4 == 0: all four in or out
+        const float4 v = *reinterpret_cast<float4*>(wp);
+        *reinterpret_cast<float4*>(wp) = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (in && (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)) {
+          red_add_v4(d, v);
+        }
+      } else {
+        const float v = *wp;
+        *wp = 0.f;
+        if (in && v != 0.f) atomicAdd(d, v);
+      }
+    }
+  };
+
+  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
+    b = t / tpf;
+    const int tt = t - b * tpf;
+    ty0 = tt / tiles_w * kTH;
+    tx0 = tt % tiles_w * kTW;
+    load(0);
+    cp_commit();
+    if (nc > 1) load(1);
+    cp_commit();
+    // gout's tile, split: zero past Cout and outside the image
+    const float* gb = a.gout + (size_t)b * a.cout * HW;
+    for (int i = tid; i < a.cout16 * kPix; i += kBwdThreads) {
+      const int o = i / kPix, p = i % kPix;
+      const int y = ty0 + p / kTW, x = tx0 + p % kTW;
+      const float v = o < a.cout && y < a.H && x < a.W
+          ? __ldg(gb + (size_t)o * HW + y * a.W + x) : 0.f;
+      const float h = hi_of(v);
+      const int at = o * kPix + (p ^ gswz(o));
+      ghi[at] = h;
+      glo[at] = lo_of(v, h);
+    }
+    cp_wait<1>();
+    // G, chunk 0's offsets and (first tile) the zeroed window and dW
+    // partial are in
+    __syncthreads();
+    if (warp >= kGcolWarp0) gcol(0);
+    for (int c = 0; c < nc; ++c) {
+      cp_wait<0>();   // chunk c + 1's offsets are in
+      // gcol of c, S of c - 1 and c + 1's offsets are visible; the buffers
+      // of c - 2 are free
+      __syncthreads();
+      if (c + 2 < nc) load(c + 2);
+      cp_commit();
+      if (warp < kGcolWarp0) {
+        if (c > 0) dweight(c - 1);
+      } else if (c + 1 < nc) {
+        gcol(c + 1);
+      }
+      sample(c);
+    }
+    __syncthreads();   // the last S and the window are complete
+    if (warp < kGcolWarp0) dweight(nc - 1);
+    flush();
+    __syncthreads();   // G and the buffers are free for the next tile
   }
-  float* pt = partial + (size_t)(b * gridDim.x + tile) * cout * C * kTaps;
-  const int co = co0 + co_l;
-#pragma unroll
-  for (int k = 0; k < kTaps; ++k) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ci = ci0 + cq + j;
-      if (co < cout && ci < C) pt[((size_t)co * C + ci) * kTaps + k] = acc[k][j];
-    }
+  if (a.dw_smem) {
+    float* pt = a.partial + (size_t)blockIdx.x * per_cta;
+    for (int i = tid; i < per_cta; i += kBwdThreads) pt[i] = dwa[i];
   }
 }
 
-// dW[e] = sum over the tiles, in order, of partial[tile][e]
-__global__ void deform_bwd_weight_reduce_kernel(
-    const float* __restrict__ partial, float* __restrict__ dw, int n,
-    int tiles) {
+template <int kCg, int kVec>
+int launch_bwd(const BwdArgs& a, int ctas, size_t smem, cudaStream_t stream) {
+  static size_t smem_set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > 48 * 1024 && (dev >= 64 || smem_set[dev] < smem)) {
+    err = cudaFuncSetAttribute(deform_bwd_tf32_kernel<kCg, kVec>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < 64) smem_set[dev] = smem;
+  }
+  deform_bwd_tf32_kernel<kCg, kVec><<<ctas, kBwdThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// dW[o][ci][k] = sum over the CTAs, in order, of their partials
+__global__ void deform_bwd_reduce_kernel(const float* __restrict__ partial,
+                                         float* __restrict__ dw, int C,
+                                         int Cg, int cout, int cout16,
+                                         int ncb, int ctas) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (i >= cout * C * kTaps) return;
+  const int k = i % kTaps, ci = i / kTaps % C, o = i / (kTaps * C);
+  int cb, col;
+  if (Cg <= kCols) {
+    const int gpc = kCols / Cg;
+    cb = ci / Cg / gpc;
+    col = ci - cb * gpc * Cg;
+  } else {
+    const int g = ci / Cg, cw = ci - g * Cg;
+    cb = g * ((Cg + kCols - 1) / kCols) + cw / kCols;
+    col = cw % kCols;
+  }
+  const size_t per_cta = (size_t)kTaps * ncb * cout16 * kCols;
+  const float* p = partial + ((size_t)(k * ncb + cb) * cout16 + o) * kCols +
+                   (col ^ dswz(o));
   float s = 0.f;
-  for (int t = 0; t < tiles; ++t) s += partial[(size_t)t * n + i];
+  for (int t = 0; t < ctas; ++t) s += p[t * per_cta];
   dw[i] = s;
 }
 
@@ -1101,57 +1631,75 @@ extern "C" int romp_deform_conv2d_bf16(const void* x, const float* off,
              : launch_bf16<0, 1>(a, grid, smem, stream);
 }
 
+// The backward's plan (see bwd_plan) for these shapes on `sms` SMs:
+// out[0..6] = ctas, ey, ex, wrows, dw_smem, smem bytes, scratch floats.
+// Returns cudaErrorInvalidValue for shapes the kernel does not take.
+extern "C" int romp_deform_conv2d_bwd_plan(int b, int c, int h, int wd,
+                                           int g, int cout, int sms,
+                                           long long* out) {
+  BwdPlan p;
+  if (b <= 0 || c <= 0 || h <= 0 || wd <= 0 || g <= 0 || cout <= 0 ||
+      sms <= 0 || c % g != 0 || !bwd_plan(b, c, h, wd, g, cout, sms, &p)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long v[7] = {p.ctas, p.ey,   p.ex,     p.wrows,
+                          p.dw_smem, (long long)p.smem, p.scratch};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+  return 0;
+}
+
 // The backward (see its header above): x (b, c, h, w), off (b, g*2*9, h,
 // w), w (cout, c, 3, 3) and gout (b, cout, h, w), f32 and contiguous ->
-// dx (b, c, h, w), doff (b, g*2*9, h, w), dw (cout, c, 3, 3); scratch
-// `partial`: b * ceil(h*w / 1024) * cout * c * 9 floats (ops/deform_conv.py
-// `bwd_partial_floats`). dx is zeroed here. Returns the cudaError_t of the
-// launches (cudaErrorInvalidValue for shapes the kernels do not take).
+// dx (b, c, h, w), doff (b, g*2*9, h, w), dw (cout, c, 3, 3), planned
+// for `sms` SMs. scratch: 16-byte aligned, of the plan's scratch floats
+// (romp_deform_conv2d_bwd_plan). Returns the cudaError_t of the launches
+// (cudaErrorInvalidValue for shapes the kernel does not take).
 extern "C" int romp_deform_conv2d_bwd_f32(const float* x, const float* off,
                                           const float* w, const float* gout,
                                           float* dx, float* doff, float* dw,
-                                          float* partial, int b, int c,
+                                          float* scratch, int b, int c,
                                           int h, int wd, int g, int cout,
-                                          int pad, cudaStream_t stream) {
-  const size_t smem = bwd_input_smem(c, cout);
+                                          int pad, int sms,
+                                          cudaStream_t stream) {
+  BwdPlan p;
   if (b <= 0 || c <= 0 || h <= 0 || wd <= 0 || g <= 0 || cout <= 0 ||
-      c % g != 0 || (long long)b * kTaps > 65535 ||
-      (long long)((cout + 31) / 32) * ((c + 31) / 32) > 65535 ||
+      sms <= 0 || c % g != 0 ||
       (long long)b * h * wd * (c > cout ? c : cout) >= (1ll << 31) ||
       (long long)b * h * wd * g * 2 * kTaps >= (1ll << 31) ||
-      smem > (size_t)kMaxSmem) {
+      reinterpret_cast<uintptr_t>(scratch) % 16 != 0 ||
+      !bwd_plan(b, c, h, wd, g, cout, sms, &p) ||
+      (long long)kTaps * p.ncb * p.nko * 128 >= (1ll << 31)) {
     return (int)cudaErrorInvalidValue;
   }
+  const int cg = c / g;
   const int hw = h * wd;
-  cudaError_t err =
-      cudaMemsetAsync(dx, 0, (size_t)b * c * hw * sizeof(float), stream);
+  const int nc = kTaps * p.ncb;
+  const int x_total = b * g * hw;
+  const int w_total = nc * p.nko * 128;
+  float4* wfrag = reinterpret_cast<float4*>(scratch);
+  float* xg = scratch + (size_t)w_total * 4;   // stays 16-byte aligned
+  float* partial = xg + (size_t)b * c * hw;
+  deform_bwd_prep_kernel<<<(x_total + w_total + 255) / 256, 256, 0,
+                           stream>>>(x, xg, dx, w, wfrag, hw, cg, x_total, c,
+                                     cout, p.ncb, p.nko, w_total);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  static size_t smem_set[64] = {};
-  int dev = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024 && (dev >= 64 || smem_set[dev] < smem)) {
-    err = cudaFuncSetAttribute(deform_bwd_input_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) smem_set[dev] = smem;
-  }
-  deform_bwd_input_kernel<<<dim3((hw + kBwdPix - 1) / kBwdPix, b * kTaps),
-                            kBwdPix, smem, stream>>>(x, off, w, gout, dx,
-                                                     doff, c, h, wd, g, cout,
-                                                     pad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int tiles = (hw + kBwdTile - 1) / kBwdTile;
-  deform_bwd_weight_kernel<<<dim3(tiles, b,
-                                  ((cout + 31) / 32) * ((c + 31) / 32)),
-                             256, 0, stream>>>(x, off, gout, partial, c, h,
-                                               wd, g, cout, pad);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const BwdArgs a{xg,    off,   gout,     wfrag,
+                  dx,    doff,  partial,  b,
+                  c,     h,     wd,       g,
+                  cg,    cout,  pad,      p.ncb,
+                  p.nko, p.cout16, p.ngc, p.ey < 0 ? 0 : p.ey,
+                  p.ex < 0 ? 0 : p.ex, p.wr, p.wc, p.wrows,
+                  p.dw_smem, wd % 4 == 0 ? 1 : 0};
+  const bool vec = wd % 4 == 0 && reinterpret_cast<uintptr_t>(off) % 16 == 0;
+  const int r = cg == 4
+      ? (vec ? launch_bwd<4, 4>(a, p.ctas, p.smem, stream)
+             : launch_bwd<4, 1>(a, p.ctas, p.smem, stream))
+      : (vec ? launch_bwd<0, 4>(a, p.ctas, p.smem, stream)
+             : launch_bwd<0, 1>(a, p.ctas, p.smem, stream));
+  if (r != 0) return r;
   const int n = cout * c * kTaps;
-  deform_bwd_weight_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
-      partial, dw, n, b * tiles);
+  deform_bwd_reduce_kernel<<<(n + 255) / 256, 256, 0, stream>>>(
+      partial, dw, c, cg, cout, p.cout16, p.ncb, p.ctas);
   return (int)cudaGetLastError();
 }

@@ -44,7 +44,8 @@ SIGNATURES = {
     "romp_basic_chain_bf16": [_P] * 10 + [_I] * 9 + [_P],
     "romp_deform_conv2d_f32": [_P] * 5 + [_I] * 7 + [_P],
     "romp_deform_conv2d_bf16": [_P] * 5 + [_I] * 7 + [_P],
-    "romp_deform_conv2d_bwd_f32": [_P] * 8 + [_I] * 7 + [_P],
+    "romp_deform_conv2d_bwd_plan": [_I] * 7 + [_P],
+    "romp_deform_conv2d_bwd_f32": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -27,7 +27,9 @@ sample, gcol[b, g*Cg+c, k, p] = sum_o weight[o, g*Cg+c, k] * gout[b, o, p]:
 dS/dy is the row difference of the corner values blended by the x weights,
 dS/dx the other way round, and floor has no gradient (as in JAX's one-hot
 formulation). On CUDA tensors the backward is `csrc/deform_conv.cu`
-`romp_deform_conv2d_bwd_f32` (`deform_conv2d_backward`), on CPU tensors
+`romp_deform_conv2d_bwd_f32` (`deform_conv2d_backward`: one pass, both
+contractions in split TF32 on the tensor cores, dx summed in
+shared-memory windows around each tile), on CPU tensors
 `deform_conv2d_bwd_plain`, its twin.
 
 bf16 x and weight (TRACE's bf16-activation path; offsets stay f32, the
@@ -38,6 +40,8 @@ the blend of the two rows at each corner column to bf16, the blend of the
 two columns (the sample) to bf16; the weight product sums in f32.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -50,8 +54,10 @@ TAPS = 9
 CHUNK_COLS = 32
 N_TILE = 32
 FRAGS = 4 * 4 * 32
-# csrc/deform_conv.cu kBwdTile: pixels per CTA of the backward's dW pass
-BWD_TILE = 1024
+# csrc/deform_conv.cu: the backward's pixel tile (kTH x kTW)
+TILE_H, TILE_W = 8, 16
+BWD_PLAN_KEYS = ("ctas", "ey", "ex", "wrows", "dw_smem", "smem",
+                 "scratch_floats")
 BF16_GRAD = (
     "deform_conv2d: the bf16 variant has no backward; training with bf16 "
     "activations is not ported (ROADMAP queue 1, after BEV training)")
@@ -181,10 +187,81 @@ def _deform_plain_bf16(x: torch.Tensor, offsets: torch.Tensor,
     return out.reshape(B, Cout, H, W)
 
 
-def bwd_partial_floats(B: int, C: int, H: int, W: int, Cout: int) -> int:
-    """The backward's dW partial sums: one (Cout, C, 9) block per pixel
-    tile of BWD_TILE pixels of each frame."""
-    return B * -(-H * W // BWD_TILE) * Cout * C * TAPS
+def bwd_plan(B: int, C: int, H: int, W: int, G: int, Cout: int,
+             sms: int) -> dict:
+    """The backward kernel's launch plan on `sms` SMs, as csrc/deform_conv.cu
+    `bwd_plan` makes it (`romp_deform_conv2d_bwd_plan`, so the CUDA library
+    is built): `ctas` persistent CTAs (one an SM, at most one a tile); the
+    dx windows, one a warp, of its group's channels over its `wrows` rows
+    of the tile +- `ey` rows and the tile's columns +- `ex` (`ey` -1: none;
+    only where the channels are one chunk and G is 4, 8 or 16); the dW
+    partial in shared memory (`dw_smem`); `smem` bytes; `scratch_floats`.
+    Raises ValueError for shapes whose smallest plan does not fit."""
+    out = (ctypes.c_longlong * len(BWD_PLAN_KEYS))()
+    if _build.load().romp_deform_conv2d_bwd_plan(
+            B, C, H, W, G, Cout, sms, ctypes.addressof(out)):
+        raise ValueError(
+            f"deform_conv2d_backward: no plan for B={B}, C={C}, H={H}, "
+            f"W={W}, G={G}, Cout={Cout}: the kernel's shared memory does "
+            f"not hold its smallest one")
+    return dict(zip(BWD_PLAN_KEYS, out))
+
+
+def bwd_global_share(offsets: torch.Tensor, deform_groups: int,
+                     padding: int, plan: dict) -> float:
+    """The share of the backward's dx contributions (corners inside the
+    image with a nonzero weight) that take global atomics, by the rule of
+    `romp_deform_conv2d_bwd_f32`, computed from the offsets: those outside
+    the window (the `plan["wrows"]` rows of the tile holding their pixel
+    +- `ey`, the tile's columns +- `ex`; all where `ey` < 0), and all of a
+    sample whose lane lost its top-left corner's tag. A warp's 32 lanes
+    take 32 consecutive pixels of a tile at one tap and group; of the
+    lanes with a corner in the window that share a top-left corner, one
+    keeps the tag. The kernel does not fix which; this takes the first.
+    Such lanes share their four corners, so their counts differ only
+    where a corner's weight is exactly 0 for some of them."""
+    B, _, H, W = offsets.shape
+    G = deform_groups
+    ey, ex, rows = plan["ey"], plan["ex"], plan["wrows"]
+    ys, xs = _sample_coords(offsets, G, H, W, padding)   # (B, G, 9, H, W)
+    y0, x0 = torch.floor(ys), torch.floor(xs)
+    ly, lx = ys - y0, xs - x0
+    dev = offsets.device
+    ty = (torch.arange(H, device=dev) // rows * rows).view(H, 1)
+    tx = (torch.arange(W, device=dev) // TILE_W * TILE_W).view(1, W)
+    hits, in_win = [], []
+    for dy, dxx, wt in ((0, 0, (1 - ly) * (1 - lx)), (0, 1, (1 - ly) * lx),
+                        (1, 0, ly * (1 - lx)), (1, 1, ly * lx)):
+        yy, xx = y0 + dy, x0 + dxx
+        hit = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W) & (wt != 0)
+        hits.append(hit)
+        in_win.append(hit & (yy >= ty - ey) & (yy < ty + rows + ey)
+                      & (xx >= tx - ex) & (xx < tx + TILE_W + ex)
+                      if ey >= 0 else torch.zeros_like(hit))
+    total = int(sum(int(h.sum()) for h in hits))
+    n_in = sum(w.to(torch.int64) for w in in_win)
+    owner = torch.ones_like(n_in, dtype=torch.bool)
+    if ey >= 0:
+        # the warp block of each pixel: its tile and which 32 of the
+        # tile's 128 pixels, at this (frame, group, tap)
+        py = torch.arange(H, device=dev).view(H, 1)
+        px = torch.arange(W, device=dev).view(1, W)
+        block = ((py // TILE_H * -(-W // TILE_W) + px // TILE_W) * 4
+                 + (py % TILE_H * TILE_W + px % TILE_W) // 32)
+        lane = (py % TILE_H * TILE_W + px % TILE_W) % 32
+        lead = torch.arange(B * G * 9, device=dev).view(B, G, 9, 1, 1)
+        cells = (H + 1) * (W + 1)
+        key = ((lead * (block.max() + 1) + block) * cells
+               + (y0.long() + 1) * (W + 1) + x0.long() + 1)
+        any_in = n_in > 0
+        k, ln = key[any_in], lane.expand_as(key)[any_in]
+        _, group = torch.unique(k, return_inverse=True)
+        first = torch.full((int(group.max()) + 1 if group.numel() else 0,),
+                           32, dtype=ln.dtype, device=dev)
+        first.scatter_reduce_(0, group, ln, "amin")
+        owner[any_in] = ln == first[group]
+    kept = int(n_in[owner].sum())
+    return (total - kept) / max(total, 1)
 
 
 def deform_conv2d_bwd_plain(x: torch.Tensor, offsets: torch.Tensor,
@@ -238,13 +315,13 @@ def deform_conv2d_bwd_plain(x: torch.Tensor, offsets: torch.Tensor,
 def deform_conv2d_backward(x: torch.Tensor, offsets: torch.Tensor,
                            weight: torch.Tensor, gout: torch.Tensor,
                            deform_groups: int = 8, padding: int = 1):
-    """The backward kernels (`csrc/deform_conv.cu`
+    """The backward kernel (`csrc/deform_conv.cu`
     `romp_deform_conv2d_bwd_f32`) for CUDA tensors, `deform_conv2d_bwd_plain`
-    for CPU tensors: (dx, doffsets, dweight), f32. dx is scattered with
+    for CPU tensors: (dx, doffsets, dweight), f32. dx is summed with
     float atomics (its last bits vary from run to run); dweight is summed
-    over pixel tiles in a second pass in a fixed order (bit-equal run to
-    run). `deform_conv2d_backward.launches` counts launches (the three
-    kernels of one call are one launch)."""
+    over fixed per-CTA partials in a fixed order (bit-equal run to run).
+    `deform_conv2d_backward.launches` counts launches (the prologue, the
+    kernel and the reduction of one call are one launch)."""
     if x.device.type == "cpu":
         return deform_conv2d_bwd_plain(x, offsets, weight, gout,
                                        deform_groups, padding)
@@ -256,14 +333,16 @@ def deform_conv2d_backward(x: torch.Tensor, offsets: torch.Tensor,
     dweight = torch.empty_like(weight)
     if B == 0 or H * W == 0:
         return dx.zero_(), doffsets.zero_(), dweight.zero_()
-    partial = torch.empty(bwd_partial_floats(B, C, H, W, Cout),
-                          dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = bwd_plan(B, C, H, W, G, Cout, sms)
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=x.device)
     with torch.cuda.device(x.device):
         err = _build.load().romp_deform_conv2d_bwd_f32(
             x.data_ptr(), offsets.data_ptr(), weight.data_ptr(),
             gout.data_ptr(), dx.data_ptr(), doffsets.data_ptr(),
-            dweight.data_ptr(), partial.data_ptr(), B, C, H, W, G, Cout,
-            padding, torch.cuda.current_stream().cuda_stream)
+            dweight.data_ptr(), scratch.data_ptr(), B, C, H, W, G, Cout,
+            padding, sms, torch.cuda.current_stream().cuda_stream)
     _build.check(err, "romp_deform_conv2d_bwd_f32")
     deform_conv2d_backward.launches += 1
     return dx, doffsets, dweight

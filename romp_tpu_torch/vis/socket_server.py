@@ -89,12 +89,21 @@ class ResultsServer:
         return sent
 
     def close(self):
+        """Stop accepting, close every client and the listening socket,
+        and wait (up to 5 s) for the accept thread to end. The shutdown
+        wakes the thread out of `accept()`: closing alone leaves it
+        blocked there with the socket still listening on the port."""
         self._stop = True
         with self._lock:
             for c in self._clients:
                 c.close()
             self._clients.clear()
+        try:
+            self._srv.shutdown(socket.SHUT_RDWR)
+        except OSError:   # not connected on some platforms: close does it
+            pass
         self._srv.close()
+        self._thread.join(5.0)
 
 
 class ResultsClient:

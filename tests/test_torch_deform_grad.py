@@ -14,7 +14,8 @@ import jax.numpy as jnp
 from romp_tpu.ops.deform_conv import deform_conv2d as jax_deform
 from romp_tpu.ops.pallas_deform import deform_conv2d_fast
 from romp_tpu_torch.ops.deform_conv import (
-    deform_conv2d, deform_conv2d_bwd_plain, deform_conv2d_plain,
+    bwd_global_share, deform_conv2d, deform_conv2d_bwd_plain,
+    deform_conv2d_plain,
 )
 
 torch.set_num_threads(2)
@@ -92,3 +93,27 @@ def test_gradcheck_f64_on_a_4x4_map(monkeypatch):
     assert torch.autograd.gradcheck(
         lambda a, b, c: deform_conv2d(a, b, c, deform_groups=2), leaves,
         eps=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case,share", [
+    ("zero offsets", 0.0),
+    ("one sample 9.5 rows down", 2 / (46 * 46 - 1 + 2)),
+    ("two lanes share a top-left corner", 1 / (46 * 46))])
+def test_backward_global_share_counts_corners_outside_the_window(case,
+                                                                  share):
+    """`bwd_global_share` against a count by hand on a 16 x 16 map, G = 1:
+    zero offsets put each of the 46 x 46 samples that fall in the image
+    on one corner of weight 1, inside its window (its warp's 4 rows +- 4,
+    its tile's 16 columns +- 4), each lane on a cell of its own; moving
+    the centre tap of pixel (0, 5) 9.5 rows down splits it over rows 9
+    and 10, both past the window's last row 7; moving that of pixel (0,
+    6) one column left puts it on pixel (0, 5)'s cell, in the same warp
+    (lanes 5 and 6): lane 6 loses the tag, and its one add goes to dx."""
+    off = torch.zeros(1, 18, 16, 16)
+    if case == "one sample 9.5 rows down":
+        off[0, 8, 0, 5] = 9.5    # channel (g*9 + 4)*2 + 0: the centre's dy
+    elif case == "two lanes share a top-left corner":
+        off[0, 9, 0, 6] = -1.0   # the centre's dx
+    plan = dict(ey=4, ex=4, wrows=4)
+    assert bwd_global_share(off, 1, 1, plan) == pytest.approx(share)
+    assert bwd_global_share(off, 1, 1, dict(ey=-1, ex=-1, wrows=8)) == 1.0

@@ -7,8 +7,8 @@ import pytest
 import torch
 
 from romp_tpu_torch.ops.deform_conv import (
-    deform_conv2d, deform_conv2d_backward, deform_conv2d_bwd_plain,
-    deform_conv2d_plain,
+    bwd_global_share, bwd_plan, deform_conv2d, deform_conv2d_backward,
+    deform_conv2d_bwd_plain, deform_conv2d_plain,
 )
 from romp_tpu_torch.ops.fused_chain import (
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain,
@@ -298,9 +298,9 @@ def test_skinning_autograd_on_card_is_the_kernel_and_exact(dev, N, V):
         (a16.grad * da).abs().sum() + (vpos.grad * dvp).abs().sum())
 
 
-def _deform_grad_operands(g, B, C, H, W, G, Cout, dev):
+def _deform_grad_operands(g, B, C, H, W, G, Cout, dev, sigma=2.0):
     x = torch.randn(B, C, H, W, generator=g).to(dev)
-    off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
+    off = (torch.randn(B, G * 18, H, W, generator=g) * sigma).to(dev)
     w = (torch.randn(Cout, C, 3, 3, generator=g) * 0.1).to(dev)
     gout = torch.randn(B, Cout, H, W, generator=g).to(dev)
     return x, off, w, gout
@@ -308,15 +308,18 @@ def _deform_grad_operands(g, B, C, H, W, G, Cout, dev):
 
 @pytest.mark.parametrize("B,C,H,W,G,Cout", [
     (10, 32, 128, 128, 8, 32), (8, 32, 128, 128, 8, 32),
-    (3, 12, 37, 29, 3, 20), (2, 40, 33, 50, 8, 36)])
+    (3, 12, 37, 29, 3, 20), (2, 40, 33, 50, 8, 36),
+    (1, 72, 20, 24, 1, 40)])
 def test_deform_backward_kernel_matches_plain(dev, B, C, H, W, G, Cout):
-    """The backward kernels (dx, doffsets, dweight) against
+    """The backward kernel (dx, doffsets, dweight) against
     `deform_conv2d_bwd_plain` on the card: the train step's clip (T = 10)
     and the inference batch (B = 8) at TRACE's shape, and ragged shapes
-    (H*W not a multiple of the 256- or 1024-pixel tiles; Cg = 4 and 5;
-    C and Cout past one block of 32). Offsets N(0, 2^2): samples cross the
-    border. Bar 1e-4 of max|ref| each, the forward's (f32 sums in another
-    order); one launch."""
+    (H, W not multiples of the 8 x 16 tile, W % 4 != 0; Cg = 4, 5 and
+    72, a group wider than a 32-channel chunk; C and Cout past one block
+    of 32; at (1, 72, .., 40) the dW partials do not fit shared memory and
+    go to device memory). Offsets N(0, 2^2): samples cross the border and
+    the dx window. Bar 1e-4 of max|ref| each, the forward's (f32 sums in
+    another order); one launch."""
     g = torch.Generator().manual_seed(B * H + W)
     x, off, w, gout = _deform_grad_operands(g, B, C, H, W, G, Cout, dev)
     before = deform_conv2d_backward.launches
@@ -328,10 +331,69 @@ def test_deform_backward_kernel_matches_plain(dev, B, C, H, W, G, Cout):
         assert _rel(a, r) <= 1e-4
 
 
+@pytest.mark.parametrize("case,B,C,H,W,G,Cout,sigma", [
+    ("sigma 8", 2, 32, 64, 64, 8, 32, 8.0),
+    ("zero offsets", 2, 32, 64, 64, 8, 32, 0.0),
+    ("ragged, Cg 2", 2, 16, 37, 45, 8, 24, 2.0)])
+def test_deform_backward_kernel_offset_cases(dev, case, B, C, H, W, G,
+                                             Cout, sigma):
+    """The backward kernel where its dx route changes: offsets N(0, 8^2)
+    send many corners past the shared-memory window (tile +- 4 pixels) to
+    the global atomics; zero offsets keep every corner in it (three of the
+    four corners then have weight 0); W = 45 is no multiple of the tile's
+    16 columns nor of 4 (the window is flushed by scalar atomics) and Cg =
+    2 gathers scalars. Each of dx, doffsets, dweight within 1e-4 of
+    max|ref|; dweight and doffsets bit-equal over two runs, dx's spread
+    at most 1e-6 of max|dx|."""
+    g = torch.Generator().manual_seed(H * W + int(sigma))
+    x, off, w, gout = _deform_grad_operands(g, B, C, H, W, G, Cout, dev,
+                                            sigma)
+    plan = bwd_plan(B, C, H, W, G, Cout, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    share = bwd_global_share(off, G, 1, plan)
+    assert (share > 0.3) if sigma == 8.0 else (share < 0.2), (case, share)
+    got = deform_conv2d_backward(x, off, w, gout, G)
+    again = deform_conv2d_backward(x, off, w, gout, G)
+    torch.cuda.synchronize()
+    for a, r in zip(got, deform_conv2d_bwd_plain(x, off, w, gout, G)):
+        assert _rel(a, r) <= 1e-4, case
+    assert torch.equal(got[2], again[2]) and torch.equal(got[1], again[1])
+    assert _rel(again[0], got[0]) <= 1e-6
+
+
+@pytest.mark.parametrize("C,G,Cout,windowed", [
+    (32, 8, 32, True), (16, 8, 24, True), (12, 3, 20, False),
+    (40, 8, 36, False), (72, 1, 40, False)])
+def test_backward_plan_fits_and_picks_the_window(dev, C, G, Cout, windowed):
+    """The backward kernel's launch plan (csrc/deform_conv.cu `bwd_plan`,
+    read through `romp_deform_conv2d_bwd_plan`): at most one CTA a tile or
+    an SM; shared memory within the card's 227 KB; a window a warp where
+    the channels are one chunk and G is 4, 8 or 16 (TRACE's shape: the
+    largest window, its 4 rows +- 4), none otherwise; a shape whose gout
+    tile alone overflows raises."""
+    plan = bwd_plan(2, C, 20, 24, G, Cout, 132)
+    assert plan["ctas"] == min(2 * 3 * 2, 132)
+    assert plan["smem"] <= 232448 and (plan["ey"] >= 0) == windowed
+    if (C, G) == (32, 8):
+        assert (plan["ey"], plan["ex"], plan["wrows"]) == (4, 4, 4)
+    with pytest.raises(ValueError):
+        bwd_plan(1, 32, 8, 16, 8, 512, 132)
+
+
+def test_deform_backward_rejects_what_it_does_not_take(dev):
+    """Shapes whose smallest plan does not fit the kernel's shared memory
+    raise, with no fallback (Cout = 512: gout's tile alone is 512 KB)."""
+    g = torch.Generator().manual_seed(13)
+    x, off, w, gout = _deform_grad_operands(g, 1, 32, 8, 16, 8, 512, dev)
+    with pytest.raises(ValueError):
+        deform_conv2d_backward(x, off, w, gout, 8)
+
+
 def test_deform_backward_dweight_is_deterministic(dev):
-    """dweight (tile partials summed in a fixed order) and doffsets (one
-    writer each) are bit-equal from run to run; dx, scattered with float
-    atomics, varies in its last bits only (1e-6 of max|dx|)."""
+    """dweight (per-CTA partials over a fixed set of tiles, summed in a
+    fixed order) and doffsets (one writer each) are bit-equal from run to
+    run; dx, summed with float atomics, varies in its last bits only (1e-6
+    of max|dx|)."""
     g = torch.Generator().manual_seed(11)
     x, off, w, gout = _deform_grad_operands(g, 10, 32, 128, 128, 8, 32, dev)
     a = deform_conv2d_backward(x, off, w, gout, 8)
