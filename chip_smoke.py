@@ -1,6 +1,7 @@
 """Drive the PyTorch + CUDA port (the ROMP and BEV image paths, the TRACE
-video path with and without RAFT's optical flow, serving, and ROMP's and
-TRACE's training) once on one GPU.
+video path with and without RAFT's optical flow, serving, and the training
+of ROMP (also with bf16 activations), TRACE and BEV, and 2D-pose
+pretraining) once on one GPU.
 
     python3 chip_smoke.py
 
@@ -45,8 +46,18 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     (configs/trace.yml: 6 clips x 10 frames, 16 tracks, f32): `launch.main`
     for 3 steps over a seeded video pack (the frozen backbone from the
     smoke ROMP weights, RAFT's flow from the smoke RAFT weights), and
-    `trace_train_step` for 8 steps on device-made batches. Each path's
-    kernel launch counters are zeroed just before it and read just after;
+    `trace_train_step` for 8 steps on device-made batches. Then BEV's
+    training at the v6 recipe (configs/v6_bev.yml: HRNet-W32 at 512x512,
+    128x128x64 maps, SMPL+A, 16 GT persons, bf16 compute, lr 5e-5, no
+    remat): the largest power-of-two batch up to 64 that fits, then
+    `bev_train_step` for 8 steps on device-made batches (skinning
+    forward and backward twice a step); 2D-pose pretraining at its recipe
+    (configs/pretrain.yml: batch up to 64 x 16 persons, 54 joints, bf16
+    compute) for 8 steps and `pretrain.main` for 3 steps over a seeded
+    16-image 2D pack; ROMP's training with bf16 activations (the
+    defaults plus train.act_dtype=bfloat16) for 8 steps and through
+    `launch.main` for 3. Each path's kernel launch counters are zeroed
+    just before it and read just after;
  5. card vs CPU: the same weights and inputs through the port on the CPU
     (plain versions) and on the card (kernels), f32 with TF32 off (ROMP,
     TRACE's head, RAFT on one 256x256 pair at 12 iterations, BEV's maps and
@@ -59,7 +70,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     the same inputs (ROMP and BEV at batch 1, TRACE on one 2-frame clip);
     then one f32 train step of the full-width HRNet-W32 at batch 2 and
     256x256: losses, BatchNorm updates and every gradient; and one f32
-    TRACE train step at full width on 1 clip of 2 frames, likewise;
+    TRACE train step at full width on 1 clip of 2 frames, likewise; and
+    one f32 BEV train step at full width at 128x128, batch 2 x 4, likewise;
  serve: `romp_tpu_torch.serve`'s server (built as `main` builds it) on a
     free port: ROMP at full width, max_batch 8, --precompile, bf16
     activations; `run_batch` once under torch.cuda.set_sync_debug_mode
@@ -79,7 +91,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     device busy / idle and kernels over a profiled step, the deform
     forward + backward's share, and one clip's peak; and over one clip's
     step, the share of the deform backward's dx contributions that took
-    global atomics.
+    global atomics; BEV's training, pretraining and ROMP's bf16-activation
+    training: s a step (the median of steps 3-8), img/s, peak memory,
+    device busy / idle over 2 profiled steps (and BEV's skinning forward
+    and backward launches and device ms).
 Then the kernels' JSON line, the card's name and power limit, and the
 result line.
 """
@@ -87,6 +102,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -108,6 +124,7 @@ from romp_tpu_torch.cli.trace import trace_settings  # noqa: E402
 from romp_tpu_torch.cli.trace_impl import build_trace_pipeline  # noqa: E402
 from romp_tpu_torch.models.bev import (  # noqa: E402
     BevNet, bev_forward_maps, bev_head_maps, bev_regress_params,
+    init_bev_params,
 )
 from romp_tpu_torch.models.hrnet import Branch  # noqa: E402
 from romp_tpu_torch.models.romp import (  # noqa: E402
@@ -155,7 +172,9 @@ from romp_tpu_torch.smpl.body_model import (  # noqa: E402
     SmplModel, synthetic_assets,
 )
 from romp_tpu_torch.config import load_config  # noqa: E402
+from romp_tpu_torch.train import bev_train_step as tbts  # noqa: E402
 from romp_tpu_torch.train import launch as train_launch  # noqa: E402
+from romp_tpu_torch.train import pretrain as tpre  # noqa: E402
 from romp_tpu_torch.train import trace_train_step as ttts  # noqa: E402
 from romp_tpu_torch.train import train_step as tts  # noqa: E402
 from romp_tpu_torch.train.data.dataset import (  # noqa: E402
@@ -182,7 +201,9 @@ KERNELS = ("skinning", "skinning_bwd", "basic_chain", "basic_chain_bf16",
            "deform_conv", "deform_conv_bf16", "deform_conv_bwd")
 BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))  # (C, H) at 512x512
 CHAIN_BATCHES = (1, 2, 64)   # batch-1 latency, PR 1's rows, offline batch
-SKIN_N = (64, 1024, 4096)   # batch x max_person: 1, 16 and 64 x 64
+# batch x max_person: 1, 16 and 64 x 64; 512 the train steps' (ROMP's 64 x
+# 8 GT persons, BEV's 32 x 16 per SMPL+A model)
+SKIN_N = (64, 512, 1024, 4096)
 SKIN_BWD_N = (64, 512, 1024, 4096)   # training: 64 x 8 GT persons = 512
 TRAIN_BATCH, TRAIN_PERSONS, TRAIN_STEPS = 64, 8, 8   # the config's defaults
 V = 6890
@@ -1691,6 +1712,46 @@ def train_grads(net, batch, smpl, cfg, prior):
             {k: v.cpu() for k, v in updates.items()})
 
 
+def grads_vs_f64(results, what):
+    """The card's and the CPU's f32 train step, each against the CPU's f64
+    step: results maps "f64", "cpu" and "card" to (losses, gradients by
+    name, BatchNorm updates). A random net's f32 step is ill-conditioned
+    (train-mode BatchNorm's backward subtracts nearly equal terms), so the
+    card is held to be as exact as the CPU: its median and worst gradient
+    error at most 2x the CPU's; the losses and BatchNorm updates within
+    1e-3 relative. Gradients that are exactly zero in f64 are left out.
+    Returns the row to print (after which the checks run)."""
+    (lr, gr, ur), (lc, gc, uc), (lg, gg, ug) = (
+        results["f64"], results["cpu"], results["card"])
+    loss_err = {k: abs(lg[k] - v) / max(abs(v), 1e-3) for k, v in lr.items()}
+    bn_err = max(rel_err(ug[k], v) for k, v in ur.items())
+    gmax = max(float(v.abs().max()) for v in gr.values())
+    card, cpu = {}, {}
+    for k, ref in gr.items():
+        if float(ref.abs().max()) > 1e-6 * gmax:   # not exactly-zero ones
+            card[k] = rel_err(gg.get(k, torch.zeros_like(ref)), ref)
+            cpu[k] = rel_err(gc.get(k, torch.zeros_like(ref)), ref)
+    worst = sorted(card, key=card.get)[-5:]
+    row = dict(loss_rel_errs_vs_f64=loss_err, bn_update_rel_err_vs_f64=bn_err,
+               grads=len(card),
+               grad_rel_err_vs_f64_median={
+                   "card": statistics.median(card.values()),
+                   "cpu": statistics.median(cpu.values())},
+               grad_rel_err_vs_f64_max={"card": max(card.values()),
+                                        "cpu": max(cpu.values())},
+               worst_card={k: (card[k], cpu[k]) for k in worst})
+
+    def checks():
+        check(max(loss_err.values()) <= 1e-3 and bn_err <= 1e-3,
+              f"{what} card vs f64: losses {loss_err}, BN {bn_err}")
+        check(row["grad_rel_err_vs_f64_median"]["card"]
+              <= 2 * row["grad_rel_err_vs_f64_median"]["cpu"]
+              and row["grad_rel_err_vs_f64_max"]["card"]
+              <= 2 * row["grad_rel_err_vs_f64_max"]["cpu"],
+              f"{what} card vs f64: gradients {row}")
+    return row, checks
+
+
 def phase_train_card_vs_cpu(dev):
     """One f32 train step of the full-width HRNet-W32 at batch 2 (256x256:
     the CPU side at 512x512 takes minutes), the same seeded weights and
@@ -1720,32 +1781,9 @@ def phase_train_card_vs_cpu(dev):
             SmplModel(assets, d).to(dt), cfg,
             GmmPrior(*(t.to(d, dt) for t in (prior.means, prior.precisions,
                                              prior.nll_weights))))
-    (lr, gr, ur), (lc, gc, uc), (lg, gg, ug) = (
-        results["f64"], results["cpu"], results["card"])
-    loss_err = {k: abs(lg[k] - v) / max(abs(v), 1e-3) for k, v in lr.items()}
-    bn_err = max(rel_err(ug[k], v) for k, v in ur.items())
-    gmax = max(float(v.abs().max()) for v in gr.values())
-    card, cpu = {}, {}
-    for k, ref in gr.items():
-        if float(ref.abs().max()) > 1e-6 * gmax:   # not exactly-zero ones
-            card[k], cpu[k] = rel_err(gg[k], ref), rel_err(gc[k], ref)
-    worst = sorted(card, key=card.get)[-5:]
-    row = dict(loss_rel_errs_vs_f64=loss_err, bn_update_rel_err_vs_f64=bn_err,
-               grads=len(card),
-               grad_rel_err_vs_f64_median={
-                   "card": statistics.median(card.values()),
-                   "cpu": statistics.median(cpu.values())},
-               grad_rel_err_vs_f64_max={"card": max(card.values()),
-                                        "cpu": max(cpu.values())},
-               worst_card={k: (card[k], cpu[k]) for k in worst})
+    row, checks = grads_vs_f64(results, "train")
     phase(5, "card vs cpu", path="train", **row)
-    check(max(loss_err.values()) <= 1e-3 and bn_err <= 1e-3,
-          f"train card vs f64: losses {loss_err}, BN {bn_err}")
-    check(row["grad_rel_err_vs_f64_median"]["card"]
-          <= 2 * row["grad_rel_err_vs_f64_median"]["cpu"]
-          and row["grad_rel_err_vs_f64_max"]["card"]
-          <= 2 * row["grad_rel_err_vs_f64_max"]["cpu"],
-          f"train card vs f64: gradients {row}")
+    checks()
 
 
 def phase_train_time(dev, smi):
@@ -1968,34 +2006,10 @@ def phase_trace_train_card_vs_cpu(dev):
         with (precision_flags(cfg) if d.type == "cuda"
               else contextlib.nullcontext()):
             results[where] = trace_train_grads(net.to(d, dt), b, cfg)
-    (lr, gr, ur), (lc, gc, uc), (lg, gg, ug) = (
-        results["f64"], results["cpu"], results["card"])
-    loss_err = {k: abs(lg[k] - v) / max(abs(v), 1e-3) for k, v in lr.items()}
-    bn_err = max(rel_err(ug[k], v) for k, v in ur.items())
-    gmax = max(float(v.abs().max()) for v in gr.values())
-    card, cpu = {}, {}
-    for k, ref in gr.items():
-        if float(ref.abs().max()) > 1e-6 * gmax:   # not exactly-zero ones
-            card[k] = rel_err(gg.get(k, torch.zeros_like(ref)), ref)
-            cpu[k] = rel_err(gc.get(k, torch.zeros_like(ref)), ref)
-    worst = sorted(card, key=card.get)[-5:]
-    row = dict(loss_rel_errs_vs_f64=loss_err, bn_update_rel_err_vs_f64=bn_err,
-               grads=len(card),
-               grad_rel_err_vs_f64_median={
-                   "card": statistics.median(card.values()),
-                   "cpu": statistics.median(cpu.values())},
-               grad_rel_err_vs_f64_max={"card": max(card.values()),
-                                        "cpu": max(cpu.values())},
-               worst_card={k: (card[k], cpu[k]) for k in worst},
-               seconds=time.perf_counter() - t0)
-    phase(5, "card vs cpu", path="trace-train", **row)
-    check(max(loss_err.values()) <= 1e-3 and bn_err <= 1e-3,
-          f"trace train card vs f64: losses {loss_err}, BN {bn_err}")
-    check(row["grad_rel_err_vs_f64_median"]["card"]
-          <= 2 * row["grad_rel_err_vs_f64_median"]["cpu"]
-          and row["grad_rel_err_vs_f64_max"]["card"]
-          <= 2 * row["grad_rel_err_vs_f64_max"]["cpu"],
-          f"trace train card vs f64: gradients {row}")
+    row, checks = grads_vs_f64(results, "trace train")
+    phase(5, "card vs cpu", path="trace-train", **row,
+          seconds=time.perf_counter() - t0)
+    checks()
 
 
 def phase_trace_train_time(dev, ctx, smi):
@@ -2067,6 +2081,349 @@ def deform_bwd_global_shares(net, step, dev):
     return shares
 
 
+# configs/v6_bev.yml and configs/pretrain.yml: batch, GT persons an image
+BEV_TRAIN_BATCH, BEV_TRAIN_PERSONS = 64, 16
+PRETRAIN_BATCH, PRETRAIN_PERSONS = 64, 16
+NEW_TRAIN_STEPS = 8
+
+
+def largest_fitting_batch(step, batch):
+    """The largest power of two <= batch at which step(b) runs on the card
+    (JAX's BEV and pretraining steps recompute nothing, so their recipes'
+    batch may not fit in 80 GB): tries batch, halves it after an
+    out-of-memory error. Returns (that batch, the batches that did not
+    fit). Any other error is raised."""
+    refused = []
+    while True:
+        oom = False
+        try:
+            step(batch)
+            torch.cuda.synchronize()
+        except torch.cuda.OutOfMemoryError:
+            oom = True           # freed below, outside the handler's frame
+        if not oom:
+            return batch, refused
+        refused.append(batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(batch > 1, "no batch fits on the card")
+        batch //= 2
+
+
+def timed_steps(step, batches, dev):
+    """step(b) for each batch, each ended by a device barrier: the seconds
+    of each (host clock), the median of steps 3-8, and the peak device
+    memory over the run."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for b in batches:
+        t0 = time.perf_counter()
+        step(b)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return times, statistics.median(times[2:]), \
+        torch.cuda.max_memory_allocated(dev)
+
+
+def kernel_ms(prof, kind):
+    return prof["busy_ms_per_call_by_kind"].get(kind, 0.0)
+
+
+def bev_smpla(dev):
+    """SMPL+A from synthetic assets: the adult (11 betas) and the infant
+    (10)."""
+    return (SmplModel(synthetic_assets(seed=0, num_betas=11), dev),
+            SmplModel(synthetic_assets(seed=1, num_betas=10), dev))
+
+
+def phase_bev_train(dev, smi):
+    """BEV's training at the v6 recipe (configs/v6_bev.yml: HRNet-W32 at
+    512x512, 128x128 maps x 64 depth bins, SMPL+A, batch 64 x 16 GT
+    persons, bf16 compute, lr 5e-5, the synthetic GMM prior; no remat, as
+    JAX's step): the largest power-of-two batch up to 64 that fits, then
+    `bev_train_step` for NEW_TRAIN_STEPS steps on device-made batches
+    (each finite, the loss moving, skinning's forward and backward kernels
+    launched twice a step: the adult and the infant model), its seconds a
+    step (the median of steps 3-8), img/s and peak memory, and two
+    profiled steps: the device busy / idle share and the skinning kernels'
+    device ms. Counters zeroed before the timed steps, read after them."""
+    cfg = load_config("configs/v6_bev.yml")
+    check((cfg.train.batch_size, cfg.model.input_size,
+           cfg.model.centermap_size, cfg.model.max_person,
+           cfg.train.compute_dtype, cfg.train.lr, cfg.model.backbone) == (
+              BEV_TRAIN_BATCH, 512, 128, BEV_TRAIN_PERSONS, "bfloat16",
+              5e-5, "hrnet32"), "the BEV recipe moved")
+    bcfg = tbts.bev_train_config(cfg)
+    adult, baby = bev_smpla(dev)
+    prior = GmmPrior.synthetic().to(dev)
+    net = BevNet()
+    net.load_state_dict(init_bev_params(torch.Generator().manual_seed(0)))
+    state = tbts.bev_init_train_state(net.to(dev), bcfg)
+
+    def step(b):
+        return tbts.bev_train_step(state, b, adult, baby, bcfg, prior)[1]
+
+    t0 = time.perf_counter()
+    batch, refused = largest_fitting_batch(
+        lambda n: step(tbts.make_bev_synthetic_batch(
+            299, n, BEV_TRAIN_PERSONS, 512, dev)), BEV_TRAIN_BATCH)
+    fit_s = time.perf_counter() - t0
+    batches = [tbts.make_bev_synthetic_batch(300 + i, batch,
+                                             BEV_TRAIN_PERSONS, 512, dev)
+               for i in range(NEW_TRAIN_STEPS)]
+    totals = []
+    reset_counts()
+    times, sec, peak = timed_steps(lambda b: totals.append(step(b)["total"]),
+                                   batches, dev)
+    n = launch_counts()
+    totals = [float(t) for t in totals]
+    check(all(np.isfinite(totals)) and len(set(totals)) > 1,
+          f"bev_train_step totals {totals}")
+    check(n["skinning"] == 2 * NEW_TRAIN_STEPS
+          and n["skinning_bwd"] == 2 * NEW_TRAIN_STEPS,
+          f"bev_train_step launches {n}")
+    phase(4, "slice", path="bev-train", batch=batch, refused=refused,
+          total=totals, launches=n)
+    prof, _ = device_profile(lambda: step(batches[0]), 2, 0)
+    row = dict(path="bev-train", backbone="hrnet32", batch=batch,
+               recipe_batch=BEV_TRAIN_BATCH, batches_refused=refused,
+               persons=BEV_TRAIN_PERSONS, compute_dtype="bfloat16",
+               remat="none", step_s=times, median_step_s=sec,
+               img_per_s=batch / sec, peak_memory_gb=peak / 1e9,
+               fit_search_s=fit_s, step_profile=prof,
+               skinning_fwd_launches_per_step=n["skinning"] // NEW_TRAIN_STEPS,
+               skinning_bwd_launches_per_step=(n["skinning_bwd"]
+                                               // NEW_TRAIN_STEPS),
+               skinning_fwd_device_ms=kernel_ms(prof, "skinning kernel"),
+               skinning_bwd_device_ms=kernel_ms(prof,
+                                                "skinning backward kernel"),
+               card=smi)
+    phase(6, "time", **row)
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"bev-train": n}
+
+
+def bev_train_grads(net, batch, adult, baby, cfg):
+    """One BEV step's losses, gradients (by name) and BatchNorm updates."""
+    net.train()
+    updates = record_bn_updates(net)
+    ctx = (precision_flags(cfg.base) if next(net.parameters()).is_cuda
+           else contextlib.nullcontext())
+    with ctx:
+        total, metrics = tbts.bev_compute_losses(net, batch, adult, baby,
+                                                 cfg)
+        names = sorted(k for k, _ in net.named_parameters())
+        params = dict(net.named_parameters())
+        grads = torch.autograd.grad(total, [params[k] for k in names],
+                                    allow_unused=True)
+    record_bn_updates(net, on=False)
+    return ({k: float(v.detach()) for k, v in metrics.items()},
+            {k: g.cpu() for k, g in zip(names, grads) if g is not None},
+            {k: v.cpu() for k, v in updates.items()})
+
+
+def phase_bev_train_card_vs_cpu(dev):
+    """One f32 BEV train step of the full-width net (HRNet-W32, BEV's heads)
+    at 128x128 input (32x32 maps x 64 depth bins), batch 2 x 4 persons: the
+    same seeded weights and batch on the card (TF32 off; the skinning
+    kernels), on the CPU in f32 (plain versions) and on the CPU in f64 as
+    the reference. As ROMP's and TRACE's steps, this one is ill-conditioned
+    at random weights (train-mode BatchNorm over 2 images), so the card's
+    f32 step is held to be as exact as the CPU's: against f64, its median
+    and its worst gradient error at most 2x the CPU's; the losses and the
+    BatchNorm updates within 1e-3 relative."""
+    size = 128
+    sd = init_bev_params(torch.Generator().manual_seed(5), size)
+    batch = tbts.make_bev_synthetic_batch(5, 2, 4, size, "cpu")
+    cfg = tbts.BevTrainConfig(base=tts.TrainConfig(), input_size=size)
+    results = {}
+    t0 = time.perf_counter()
+    for where, d, dt in (("f64", torch.device("cpu"), torch.float64),
+                         ("cpu", torch.device("cpu"), torch.float32),
+                         ("card", dev, torch.float32)):
+        net = BevNet("hrnet32", size // 4)
+        net.load_state_dict(sd)
+        adult, baby = (m.to(dt) for m in bev_smpla(d))
+        b = {k: v.to(d, dt) if v.is_floating_point() else v.to(d)
+             for k, v in batch.items()}
+        reset_counts()
+        results[where] = bev_train_grads(net.to(d, dt), b, adult, baby, cfg)
+    card_launches = launch_counts()
+    row, checks = grads_vs_f64(results, "bev train")
+    phase(5, "card vs cpu", path="bev-train", **row,
+          card_launches=card_launches, seconds=time.perf_counter() - t0)
+    check(card_launches["skinning"] == 2
+          and card_launches["skinning_bwd"] == 2,
+          f"bev train card vs cpu: launches {card_launches}")
+    checks()
+
+
+def write_pretrain_pack(root, n=16, size=512):
+    """n seeded images (cv2) and a 2D-only annotation pack of 1-3 persons
+    each (some joints unlabelled)."""
+    import cv2
+
+    rng = np.random.RandomState(6)
+    (root / "data").mkdir(parents=True, exist_ok=True)
+    records = []
+    for i in range(n):
+        path = root / f"img{i:02d}.jpg"
+        cv2.imwrite(str(path), (rng.rand(size, size, 3) * 255).astype(
+            np.uint8))
+        kp = rng.uniform(40, size - 40, (rng.randint(1, 4), 54, 2)).astype(
+            np.float32)
+        kp[:, 30:] = -2.0
+        records.append(ImageAnnotation(str(path), kp))
+    save_pack(str(root / "data" / "smoke2d.npz"), records)
+
+
+def phase_pretrain(dev, smi):
+    """2D-pose pretraining at its recipe (configs/pretrain.yml: HRNet-W32
+    at 512x512, batch 64 x 16 persons, 54 joints, bf16 compute; no remat,
+    as JAX's step): the largest power-of-two batch up to 64 that fits,
+    then `pretrain_step` for NEW_TRAIN_STEPS steps on device-made batches
+    (each finite with grads_finite 1, the loss moving): seconds a step,
+    img/s, peak memory and two profiled steps; then `pretrain.main` for 3
+    steps over a seeded 16-image 2D pack at that batch (its log and
+    checkpoint). Pretraining runs none of the port's kernels (no SMPL; the
+    chain kernel is off in train mode): its counts are recorded."""
+    cfg = load_config("configs/pretrain.yml")
+    check((cfg.train.batch_size, cfg.model.input_size, cfg.model.backbone,
+           cfg.train.compute_dtype, cfg.model.max_person) == (
+              PRETRAIN_BATCH, 512, "hrnet32", "bfloat16", PRETRAIN_PERSONS),
+          "the pretraining recipe moved")
+    pcfg = tpre.pretrain_config(cfg)
+    net = tpre.PretrainNet()
+    net.load_state_dict(tpre.init_pretrain_params(
+        torch.Generator().manual_seed(0), pcfg))
+    state = tpre.init_pretrain_state(net.to(dev), pcfg)
+
+    def step(b):
+        return tpre.pretrain_step(state, b, pcfg)[1]
+
+    batch, refused = largest_fitting_batch(
+        lambda n: step(tpre.make_synthetic_pretrain_batch(
+            399, n, PRETRAIN_PERSONS, 512, dev)), PRETRAIN_BATCH)
+    batches = [tpre.make_synthetic_pretrain_batch(400 + i, batch,
+                                                  PRETRAIN_PERSONS, 512, dev)
+               for i in range(NEW_TRAIN_STEPS)]
+    rows = []
+    reset_counts()
+    times, sec, peak = timed_steps(lambda b: rows.append(step(b)), batches,
+                                   dev)
+    by_path = {"pretrain": launch_counts()}
+    rows = [{k: float(v) for k, v in r.items()} for r in rows]
+    check_train_steps(rows, "pretrain_step")
+    prof, _ = device_profile(lambda: step(batches[0]), 2, 0)
+    del state, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = _build.BUILD_DIR / "smoke_pretrain_pack"
+    write_pretrain_pack(root)
+    ck = _build.BUILD_DIR / "smoke_pretrain"
+    log = ck / "pretrain_log.jsonl"
+    if log.exists():
+        log.unlink()
+    reset_counts()
+    t0 = time.perf_counter()
+    check(tpre.main(["--config", "configs/pretrain.yml", "--data_root",
+                     str(root / "data"), "--max_steps", "3", "--GPU",
+                     str(dev.index or 0), "data.datasets=smoke2d",
+                     f"train.batch_size={batch}",
+                     f"train.checkpoint_dir={ck}",
+                     "train.log_every=1"]) == 0, "pretrain.main")
+    torch.cuda.synchronize()
+    by_path["pretrain_launch"] = launch_counts()
+    logged = [json.loads(line) for line in log.read_text().splitlines()]
+    check([r["step"] for r in logged] == [1, 2, 3]
+          and all(r["grads_finite"] == 1.0 and np.isfinite(r["total"])
+                  for r in logged), f"pretrain.main log {logged}")
+    check((ck / "pretrain_last.npz").exists(), "pretrain_last.npz")
+    phase(4, "slice", path="pretrain", batch=batch, refused=refused,
+          total=[r["total"] for r in rows], launches=by_path["pretrain"],
+          launch=dict(seconds=time.perf_counter() - t0, log=logged[-1],
+                      launches=by_path["pretrain_launch"]))
+    phase(6, "time", path="pretrain", backbone="hrnet32", batch=batch,
+          recipe_batch=PRETRAIN_BATCH, batches_refused=refused,
+          persons=PRETRAIN_PERSONS, joints=tpre.NUM_JOINTS,
+          compute_dtype="bfloat16", step_s=times, median_step_s=sec,
+          img_per_s=batch / sec, peak_memory_gb=peak / 1e9,
+          step_profile=prof, card=smi)
+    return by_path
+
+
+def phase_train_bf16_act(dev, smi):
+    """ROMP's training with bf16 activations (the `phase_train_time` setup,
+    batch 64 x 8, mixed compute, remat "stage", with train.act_dtype
+    bfloat16): Trainer.step over NEW_TRAIN_STEPS device-made batches (each
+    finite, grads_finite 1, skinning's kernels launched once forward and
+    once backward a step), seconds a step, img/s, peak memory and two
+    profiled steps, beside the mixed step's (phase 6's "train" row); then
+    `launch.main` for 3 steps with train.act_dtype=bfloat16 over the
+    seeded 16-image pack of the train phase."""
+    smpl = SmplModel(synthetic_assets(seed=0), dev)
+    trainer = Trainer(train_config(_build.BUILD_DIR / "smoke_train_bf16",
+                                   "train.tensorboard=false",
+                                   "train.act_dtype=bfloat16"), smpl,
+                      device=dev)
+    check(trainer.tcfg.act_dtype == "bfloat16", "act_dtype did not reach")
+    batches = [tts.make_synthetic_batch(500 + i, TRAIN_BATCH, TRAIN_PERSONS,
+                                        512, dev)
+               for i in range(NEW_TRAIN_STEPS)]
+    packed = []
+    reset_counts()
+    times, sec, peak = timed_steps(
+        lambda b: packed.append(trainer.step(b)), batches, dev)
+    by_path = {"train_bf16_act": launch_counts()}
+    rows = [dict(zip(trainer._metric_names, p.tolist())) for p in packed]
+    check_train_steps(rows, "bf16-act train step")
+    n = by_path["train_bf16_act"]
+    check(n["skinning"] == NEW_TRAIN_STEPS
+          and n["skinning_bwd"] == NEW_TRAIN_STEPS,
+          f"bf16-act train launches {n}")
+    prof, _ = device_profile(lambda: trainer.step(batches[0]), 2, 0)
+    del trainer, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = _build.BUILD_DIR / "smoke_pack"
+    if not (root / "data" / "smoke.npz").exists():
+        write_train_pack(root)
+    ck = _build.BUILD_DIR / "smoke_launch_bf16"
+    log = ck / "train_log.jsonl"
+    if log.exists():
+        log.unlink()
+    reset_counts()
+    t0 = time.perf_counter()
+    check(train_launch.main(
+        ["--data_root", str(root / "data"), "--max_steps", "3", "--GPU",
+         str(dev.index or 0), "data.datasets=smoke",
+         f"train.checkpoint_dir={ck}", "train.test_interval=0",
+         "train.log_every=1", "train.act_dtype=bfloat16"]) == 0,
+          "launch.main bf16-act")
+    torch.cuda.synchronize()
+    by_path["train_launch_bf16_act"] = launch_counts()
+    logged = [json.loads(line) for line in log.read_text().splitlines()]
+    check([r["step"] for r in logged] == [1, 2, 3]
+          and all(r["grads_finite"] == 1.0 and np.isfinite(r["total"])
+                  for r in logged), f"launch.main bf16-act log {logged}")
+    check(by_path["train_launch_bf16_act"]["skinning_bwd"] == 3,
+          f"launch.main bf16-act launches {by_path}")
+    phase(4, "slice", path="train-bf16-act",
+          total=[r["total"] for r in rows], launches=n,
+          launch=dict(seconds=time.perf_counter() - t0, log=logged[-1],
+                      launches=by_path["train_launch_bf16_act"]))
+    phase(6, "time", path="train-bf16-act", backbone="hrnet32",
+          batch=TRAIN_BATCH, persons=TRAIN_PERSONS, compute_dtype="bfloat16",
+          act_dtype="bfloat16", remat="stage", step_s=times,
+          median_step_s=sec, steps_per_s=1 / sec,
+          img_per_s=TRAIN_BATCH / sec, peak_memory_gb=peak / 1e9,
+          step_profile=prof, card=smi)
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run "
@@ -2132,6 +2489,10 @@ def main():
     phase_train_time(dev, smi)
     phase_trace_train_time(dev, trace_train_ctx, smi)
     del trace_train_ctx
+    new_train_launches = phase_bev_train(dev, smi)
+    phase_bev_train_card_vs_cpu(dev)
+    new_train_launches.update(phase_pretrain(dev, smi))
+    new_train_launches.update(phase_train_bf16_act(dev, smi))
 
     meta = {
         "skinning": ("romp_tpu_torch/csrc/lbs.cu",
@@ -2171,6 +2532,7 @@ def main():
                    **{p: c[name] for p, c in bf16_launches.items()},
                    **{p: c[name] for p, c in train_launches.items()},
                    **{p: c[name] for p, c in trace_train_launches.items()},
+                   **{p: c[name] for p, c in new_train_launches.items()},
                    "serve": serve_launches[name]}
         device = [r["device_ms"] for r in timed]
         kernels.append(dict(

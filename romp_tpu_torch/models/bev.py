@@ -24,7 +24,7 @@ import torch.nn as nn
 from romp_tpu_torch.models.hrnet import Branch, hrnet32
 from romp_tpu_torch.models.layers import (
     F32, BasicBlock1d, BasicBlock3d, BasicBlockConvDs, Conv2d, LayerOpts,
-    batch_norm,
+    at_least_f32, batch_norm,
 )
 from romp_tpu_torch.ops.centermap import CenterDetections3D
 
@@ -173,10 +173,10 @@ class BevNet(nn.Module):
 
     def extract_features(self, images: torch.Tensor,
                          opts: LayerOpts = F32) -> torch.Tensor:
-        """(B, S, S, 3) RGB in [0, 255] (uint8 or float) -> (B, 32, S/4,
-        S/4) backbone features in the activation dtype (JAX's BEV keeps
-        them so, `bev.py:105`)."""
-        x = ((images.float() / 255.0) * 2.0 - 1.0).permute(0, 3, 1, 2)
+        """(B, S, S, 3) RGB in [0, 255] (uint8 or float; f64 stays f64) ->
+        (B, 32, S/4, S/4) backbone features in the activation dtype (JAX's
+        BEV keeps them so, `bev.py:105`)."""
+        x = ((at_least_f32(images) / 255.0) * 2.0 - 1.0).permute(0, 3, 1, 2)
         return self.backbone(x.contiguous(), opts)
 
 

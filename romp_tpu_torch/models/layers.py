@@ -31,9 +31,9 @@ layers and each step keeps JAX's dtype:
 - BatchNorm: scale and shift folded in f32, cast to bf16, applied in bf16;
 - residual adds and ReLUs in the operands' dtype (bf16 + f32 promotes).
 The bf16 weights, biases and folded BN are cast once, by `cast_bf16(net)`
-after loading (a layer raises without them). JAX refuses a bf16 activation
-with f32 conv operands (`preferred_element_type` narrower than the input),
-and so does `LayerOpts`.
+after loading (a layer raises without them). At inference JAX refuses a
+bf16 activation with f32 conv operands (`preferred_element_type` narrower
+than the input), and so does `LayerOpts` unless `train` is set.
 
 Train mode (`net.train()`, the trainer's, `layers.py:110-120, 137-175`):
 - Conv2d on the mixed path rounds its output to bf16 too, as JAX's
@@ -47,8 +47,14 @@ Train mode (`net.train()`, the trainer's, `layers.py:110-120, 137-175`):
   (`torch.utils.checkpoint`) finds its entries taken and records nothing.
   Without an attached dict a train-mode BatchNorm is torch's, which
   updates in place (the `calibrate_*batchnorm` helpers use that).
-bf16 activations are an inference mode: a bf16 BatchNorm raises in train
-mode.
+With act_dtype=bfloat16 in train mode (JAX's `layers.py:112-121, 131-133,
+147-173, 334-354`), the layers read the live f32 weights on every call,
+never `cast_bf16`'s copies (those go stale after the first update):
+- Conv2d / ConvTranspose2d: the conv in the compute dtype on the weights
+  cast to it, the output cast to bf16 (one rounding), a bias added in bf16;
+- BatchNorm: the statistics and the normalization in f32 as above, the
+  output cast to bf16;
+- ReLUs and residual adds in bf16, as at inference.
 """
 from __future__ import annotations
 
@@ -70,15 +76,16 @@ class LayerOpts:
     compute_dtype: torch.dtype = torch.float32   # conv operand dtype
     fuse_chains: bool = False    # HRNet branch chains through the kernel
     act_dtype: torch.dtype = torch.float32       # activations between layers
+    train: bool = False          # ParamStore's train: the train step's opts
 
     def __post_init__(self):
         if self.act_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(f"act_dtype {self.act_dtype}")
-        if (self.act_dtype == torch.bfloat16
+        if (self.act_dtype == torch.bfloat16 and not self.train
                 and self.compute_dtype != torch.bfloat16):
             raise ValueError("act_dtype bfloat16 needs compute_dtype "
-                             "bfloat16 (JAX's conv refuses a bf16 result of "
-                             "f32 operands)")
+                             "bfloat16 at inference (JAX's inference conv "
+                             "refuses a bf16 result of f32 operands)")
 
     @property
     def bf16_act(self) -> bool:
@@ -89,12 +96,14 @@ F32 = LayerOpts()
 
 
 def opts_from_names(compute_dtype: str, act_dtype: str = "float32",
-                    fuse_chains: bool = False) -> LayerOpts:
-    """LayerOpts from a pipeline config's dtype names."""
+                    fuse_chains: bool = False, train: bool = False
+                    ) -> LayerOpts:
+    """LayerOpts from a pipeline or train config's dtype names."""
     def dtype(name):
         return torch.bfloat16 if name == "bfloat16" else torch.float32
     return LayerOpts(compute_dtype=dtype(compute_dtype),
-                     fuse_chains=fuse_chains, act_dtype=dtype(act_dtype))
+                     fuse_chains=fuse_chains, act_dtype=dtype(act_dtype),
+                     train=train)
 
 
 class _Bf16Cast:
@@ -154,6 +163,13 @@ class Conv2d(_Bf16Cast, nn.Conv2d):
                        else self.bias.to(torch.bfloat16))
 
     def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
+        if opts.bf16_act and self.training:
+            cd = opts.compute_dtype
+            y = F.conv2d(x.to(cd), self.weight.to(cd), None, self.stride,
+                         self.padding).to(torch.bfloat16)
+            if self.bias is not None:
+                y = y + self.bias.to(torch.bfloat16).view(-1, 1, 1)
+            return y
         if opts.bf16_act:
             y = F.conv2d(x.to(torch.bfloat16), self._bf16("weight"), None,
                          self.stride, self.padding)
@@ -186,6 +202,11 @@ class ConvTranspose2d(_Bf16Cast, nn.ConvTranspose2d):
         self._set_bf16(weight=self.weight.to(torch.bfloat16))
 
     def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
+        if opts.bf16_act and self.training:
+            cd = opts.compute_dtype
+            return F.conv_transpose2d(x.to(cd), self.weight.to(cd), None,
+                                      self.stride, self.padding).to(
+                                          torch.bfloat16)
         if opts.bf16_act:
             return F.conv_transpose2d(x.to(torch.bfloat16),
                                       self._bf16("weight"), None,
@@ -215,8 +236,10 @@ class _RoundedConv(_Bf16Cast):
 
     def forward(self, x: torch.Tensor, opts: LayerOpts = F32) -> torch.Tensor:
         if opts.bf16_act:
-            y = self._conv_forward(x.to(torch.bfloat16), self._bf16("weight"),
-                                   None)
+            cd = opts.compute_dtype if self.training else torch.bfloat16
+            w = (self.weight.to(cd) if self.training
+                 else self._bf16("weight"))
+            y = self._conv_forward(x.to(cd), w, None).to(torch.bfloat16)
             return y if self.bias is None else y + self.bias.view(
                 -1, *(1,) * (y.dim() - 2))
         if opts.compute_dtype != torch.bfloat16:
@@ -246,10 +269,11 @@ class Conv3d(_RoundedConv, nn.Conv3d):
 
 
 class _FoldedBf16Norm(_Bf16Cast):
-    """forward of the BatchNorms: torch's on f32 input; on bf16 input (the
-    bf16-activation path, eval mode only) x * scale + shift in bf16, with
-    scale = weight / sqrt(var + eps) and shift = bias - mean * scale
-    folded in f32 and cast to bf16 by `cast_bf16` (`layers.py:163-168`)."""
+    """forward of the BatchNorms: torch's on f32 input; on bf16 input in
+    eval mode x * scale + shift in bf16, with scale = weight / sqrt(var +
+    eps) and shift = bias - mean * scale folded in f32 and cast to bf16 by
+    `cast_bf16` (`layers.py:163-168`); on bf16 input in train mode the f32
+    train-mode BatchNorm, its output cast to bf16 (`layers.py:169-173`)."""
 
     def cast_bf16(self) -> None:
         inv = torch.rsqrt(self.running_var + self.eps) * self.weight
@@ -266,10 +290,9 @@ class _FoldedBf16Norm(_Bf16Cast):
                 return self._train_forward(x)
             return super().forward(x)
         if self.training:
-            raise RuntimeError(
-                "bf16 activations are an inference mode: train-mode "
-                "BatchNorm takes f32 (training with bf16 activations is "
-                "ROADMAP queue 1 item 5, after BEV training)")
+            y = (self._train_forward(x) if self.bn_updates is not None
+                 else super().forward(x.float()))
+            return y.to(torch.bfloat16)
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return (x * self._bf16("scale").view(shape)
                 + self._bf16("shift").view(shape))

@@ -11,8 +11,9 @@ ROMP's packs are <data_root>/<name>.npz annotation records
 TRACE's are video packs (`train/data/video_dataset.py` converters and
 `save_video_pack`). `--GPU N` (default 0) trains on `cuda:N` and raises
 when that card does not exist; `--GPU -1` trains on the CPU.
-`model.version=bev` is not ported (the JAX launcher has no BEV branch
-either: ROADMAP queue 1).
+`model.version=bev` is refused, as the JAX launcher has no BEV branch:
+BEV trains through `train/bev_train_step.py`'s step functions. 2D-pose
+pretraining has its own launcher, `romp_tpu_torch.train.pretrain`.
 """
 from __future__ import annotations
 
@@ -21,13 +22,19 @@ import os.path as osp
 import sys
 
 BEV_NOT_PORTED = (
-    "model.version={}: the port trains ROMP and TRACE; BEV training (its "
-    "step functions; the JAX launcher has no BEV branch) is ROADMAP queue "
-    "1, next in order")
+    "model.version={}: the launcher trains ROMP and TRACE, as the JAX "
+    "launcher does (it has no BEV branch); BEV trains through the step "
+    "functions of romp_tpu_torch/train/bev_train_step.py (bev_init_train_"
+    "state, bev_train_step; see ROADMAP)")
 
 
 def build_datasets(cfg):
-    """The configured dataset mix from <data_root>/<name>.npz packs."""
+    """The configured dataset mix from <data_root>/<name>.npz packs. A
+    missing pack is skipped with its sampling probability (JAX's
+    `build_datasets` keeps every probability, so a skipped pack shifts them
+    onto the wrong packs or fails the sampler); probabilities that do not
+    name one per dataset (a recipe's `sample_prob` after a `data.datasets=`
+    override) are not used: the packs are sampled by size."""
     from romp_tpu_torch.train.data.augment import AugmentConfig
     from romp_tpu_torch.train.data.dataset import (
         MixedDataset, SingleDataset, load_pack,
@@ -38,9 +45,10 @@ def build_datasets(cfg):
                         rot_factor=cfg.data.rot_aug,
                         color_jitter=cfg.data.color_jitter,
                         occlusion_prob=cfg.data.synthetic_occlusion_prob)
-    datasets = []
+    datasets, probs = [], []
     data_root = getattr(cfg, "data_root", "data")
-    for name in cfg.data.datasets:
+    given = tuple(cfg.data.sample_probs)
+    for i, name in enumerate(cfg.data.datasets):
         pack = osp.join(data_root, f"{name}.npz")
         if not osp.exists(pack):
             print(f"WARNING: missing annotation pack {pack}; skipping",
@@ -48,12 +56,13 @@ def build_datasets(cfg):
             continue
         datasets.append(SingleDataset(load_pack(pack), name, aug,
                                       num_person=cfg.data.num_person))
+        if len(given) == len(cfg.data.datasets):
+            probs.append(given[i])
     if not datasets:
         raise FileNotFoundError(
             "no annotation packs found; convert datasets first "
             "(romp_tpu_torch/train/data/dataset.py converters)")
-    probs = cfg.data.sample_probs if len(cfg.data.sample_probs) else None
-    return MixedDataset(datasets, probs)
+    return MixedDataset(datasets, probs or None)
 
 
 def trace_train_config(cfg):

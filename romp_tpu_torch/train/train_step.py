@@ -79,7 +79,7 @@ class TrainConfig:
     loss_thresh: float = 1000.0            # per-loss clamp
     new_training: bool = False             # det-only warmup
     compute_dtype: str = "float32"
-    act_dtype: str = "float32"
+    act_dtype: str = "float32"             # bfloat16: bf16 activations
     remat: str = "stage"                   # "stage" | "net" | "none"
     cam_scale_base: float = 1.1
     match_pred_centers: bool = False       # matching_forward refinement
@@ -87,10 +87,8 @@ class TrainConfig:
     backbone: str = "hrnet32"
 
     def __post_init__(self):
-        if self.act_dtype != "float32":
-            raise NotImplementedError(
-                "training with bf16 activations is not ported yet (ROADMAP "
-                "queue 1 item 5: after BEV training and pretraining)")
+        if self.act_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"act_dtype {self.act_dtype!r}")
         if self.remat not in ("stage", "net", "none"):
             raise ValueError(f"remat {self.remat!r}")
 
@@ -273,9 +271,10 @@ def run_net_remat(net: RompNet, image: torch.Tensor, cfg: TrainConfig
     `torch.utils.checkpoint` region, so the backward keeps the segments'
     boundary tensors and recomputes one segment at a time; "net": one region
     for the whole net; "none": no recompute. A recomputed BatchNorm finds its
-    statistics recorded and records nothing. Returns (center_maps,
-    params_maps), channels-last."""
-    opts = opts_from_names(cfg.compute_dtype, cfg.act_dtype)
+    statistics recorded and records nothing. With bf16 activations the
+    segments' boundary tensors are bf16. Returns (center_maps,
+    params_maps), channels-last, in the activation dtype."""
+    opts = opts_from_names(cfg.compute_dtype, cfg.act_dtype, train=True)
     if cfg.remat == "stage":
         xs = [image]
         for seg in net.segments(opts):
@@ -371,20 +370,23 @@ def compute_losses(net: RompNet, batch: Dict[str, torch.Tensor],
     return merge_losses(loss_dict, cfg.loss_thresh, cfg.new_training)
 
 
-def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-               smpl: SmplModel, cfg: TrainConfig,
-               prior: Optional[GmmPrior] = None
-               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """One AdamW step, in place (`train_step.py:294-322`). Returns the state
-    and the metrics (0-dim device tensors: the clamped losses, task sums,
-    total, grads_finite). BatchNorm statistics follow the step's skip rule."""
+def run_step(state: TrainState, losses_fn: Callable[[nn.Module], Tuple[
+        torch.Tensor, Dict[str, torch.Tensor]]], cfg,
+             gate_bn: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One AdamW step of `state.net`, in place: `losses_fn(net)` gives
+    (total, metrics), run with the net in train mode and its BatchNorms
+    recording their updates; `cfg` is any step config with TrainConfig's
+    optimizer fields and `compute_dtype`. The BatchNorm statistics take
+    the recorded updates, only when the gradient was finite if `gate_bn`
+    (ROMP's and pretraining's rule) or always (BEV's, as JAX's steps do).
+    Returns (whether the gradient was finite, the detached metrics)."""
     net = state.net.train()
     params = [dict(net.named_parameters())[k] for k in state.names]
     updates = record_bn_updates(net)
     try:
         with (precision_flags(cfg) if state.flat.is_cuda
               else contextlib.nullcontext()):
-            total, metrics = compute_losses(net, batch, smpl, cfg, prior)
+            total, metrics = losses_fn(net)
             grads = torch.autograd.grad(total, params, allow_unused=True)
     finally:
         record_bn_updates(net, on=False)
@@ -395,9 +397,22 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         # every train-mode BatchNorm recorded its update
         bn_new = torch.cat([updates.get(k, v).reshape(-1)
                             for k, v in state.bn_state.items()])
-        state.bn_flat.copy_(torch.where(finite, bn_new, state.bn_flat))
+        state.bn_flat.copy_(torch.where(finite, bn_new, state.bn_flat)
+                            if gate_bn else bn_new)
     state.step += 1
-    metrics = {k: v.detach() for k, v in metrics.items()}
+    return finite, {k: v.detach() for k, v in metrics.items()}
+
+
+def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
+               smpl: SmplModel, cfg: TrainConfig,
+               prior: Optional[GmmPrior] = None
+               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """One AdamW step, in place (`train_step.py:294-322`). Returns the state
+    and the metrics (0-dim device tensors: the clamped losses, task sums,
+    total, grads_finite). BatchNorm statistics follow the step's skip rule."""
+    finite, metrics = run_step(
+        state, lambda net: compute_losses(net, batch, smpl, cfg, prior), cfg,
+        gate_bn=True)
     metrics["grads_finite"] = finite.float()
     return state, metrics
 

@@ -21,6 +21,7 @@ from __future__ import annotations
 import json
 import os
 import os.path as osp
+import sys
 import time
 from typing import Callable, Dict, Iterator, Optional
 
@@ -70,14 +71,28 @@ def load_train_state(path: str, state: TrainState,
                      weights_only: bool = False) -> TrainState:
     """Fill `state` in place from a `save_train_state` archive: parameters
     and BatchNorm statistics, and unless `weights_only`, the optimizer
-    state and the step."""
+    state and the step. With `weights_only` (fine-tuning) the archive may
+    hold another net's weights, as the reference's `copy_state_dict` takes
+    them: each tensor it holds under the same name and shape is copied, the
+    rest keep their values (a 2D-pose pretraining checkpoint gives the
+    backbone and the center head), and what was left out is reported."""
     with np.load(path) as data:
         arrays = {k: data[k] for k in data.files}
     dev = state.flat.device
+    left = []
     for prefix, tensors in (("p", state.trainable), ("b", state.bn_state)):
         for k, t in tensors.items():
-            t.copy_(torch.from_numpy(np.asarray(arrays[f"{prefix}::{k}"])))
+            a = arrays.get(f"{prefix}::{k}")
+            if a is None or (weights_only and a.shape != tuple(t.shape)):
+                if not weights_only:
+                    raise KeyError(f"{path}: no {prefix}::{k}")
+                left.append(k)
+                continue
+            t.copy_(torch.from_numpy(np.asarray(a)))
     if weights_only:
+        if left:
+            print(f"fine-tune from {path}: {len(left)} tensors not in it "
+                  f"keep their init (first: {left[0]})", file=sys.stderr)
         return state
     opt = state.opt_state
     for prefix, flat in (("mu", opt.mu), ("nu", opt.nu)):

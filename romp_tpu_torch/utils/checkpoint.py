@@ -92,6 +92,32 @@ def trace_train_state_from_jax(npz, cfg, device="cpu", map_size=128):
                                  trace_init_train_state)
 
 
+def bev_train_state_from_jax(npz, cfg, device="cpu"):
+    """The JAX package's BEV train state (`save_train_state` of a
+    BevTrainState: the net's parameters, its BatchNorm statistics and the
+    same optimizer leaves as ROMP's) as the port's BEV train state for the
+    BevTrainConfig `cfg`, on `device`: a BevNet of `cfg.backbone` whose BV
+    convs are sized for `cfg.input_size`, as `init_bev_params` sizes them."""
+    from romp_tpu_torch.models.bev import BevNet
+    from romp_tpu_torch.train.bev_train_step import bev_init_train_state
+
+    return _train_state_from_jax(
+        npz, BevNet(cfg.backbone, cfg.input_size // 4), cfg, device,
+        bev_init_train_state)
+
+
+def pretrain_state_from_jax(npz, cfg, device="cpu"):
+    """The JAX package's `pretrain_last.npz` (`save_train_state` of a
+    PretrainState) as the port's pretraining state for the PretrainConfig
+    `cfg`, on `device`: a PretrainNet of `cfg.backbone` and
+    `cfg.num_joints`."""
+    from romp_tpu_torch.train.pretrain import PretrainNet, init_pretrain_state
+
+    return _train_state_from_jax(
+        npz, PretrainNet(cfg.backbone, cfg.num_joints), cfg, device,
+        init_pretrain_state)
+
+
 def _train_state_from_jax(npz, net, cfg, device, init_state):
     if isinstance(npz, str):
         with np.load(npz) as data:

@@ -56,6 +56,7 @@ from romp_tpu_torch.smpl.body_model import SmplModel, synthetic_assets
 # kind of kernel -> substrings of its name; the first match wins
 KINDS = (
     ("skinning kernel", ("skinning_tf32_kernel",)),
+    ("skinning backward kernel", ("skinning_bwd_",)),
     ("deform backward kernel", ("deform_bwd_",)),
     ("deform kernel", ("deform_conv_tf32_kernel", "deform_prep_kernel",
                        "deform_conv_bf16_kernel", "deform_prep_bf16_kernel")),

@@ -301,3 +301,38 @@ def test_trace_launch_keeps_tf32_off_while_workers_run(tmp_path,
     workers = {name for name, _ in seen["features"]}
     assert workers and threading.main_thread().name not in workers
     assert all(f == (False, False) for _, f in seen["features"]), seen
+
+
+def test_build_datasets_keeps_the_probabilities_of_found_packs(tmp_path,
+                                                               capsys):
+    """A recipe's `sample_prob` with some packs missing: the packs found
+    keep their own probabilities (renormalized), the missing ones are
+    skipped with theirs; after a `data.datasets=` override the recipe's
+    probabilities name other packs and are not used (sampling by size).
+    JAX's `build_datasets` keeps the whole list, which fails the sampler
+    here (ROADMAP queue 3)."""
+    from romp_tpu_torch.config import load_config
+    from romp_tpu_torch.train.data.dataset import batch_iterator
+    from romp_tpu_torch.train.launch import build_datasets
+
+    root = str(tmp_path)
+    _write_pack(root)                       # data/mini.npz, 4 records
+    os.replace(osp.join(root, "data", "mini.npz"),
+               osp.join(root, "data", "mpii.npz"))
+    _write_pack(root, n=2)
+    os.replace(osp.join(root, "data", "mini.npz"),
+               osp.join(root, "data", "crowdpose.npz"))
+    cfg = load_config(osp.join(REPO, "configs", "pretrain.yml"))
+    assert cfg.data.datasets == ("coco", "mpii", "crowdpose", "crowdhuman")
+    cfg.data_root = osp.join(root, "data")
+    mixed = build_datasets(cfg)
+    assert [d.name for d in mixed.datasets] == ["mpii", "crowdpose"]
+    np.testing.assert_allclose(mixed.probs, [0.5, 0.5])
+    assert "missing annotation pack" in capsys.readouterr().err
+    cfg = load_config(osp.join(REPO, "configs", "pretrain.yml"),
+                      overrides=["data.datasets=mpii"])
+    cfg.data_root = osp.join(root, "data")
+    mixed = build_datasets(cfg)
+    assert [d.name for d in mixed.datasets] == ["mpii"]
+    np.testing.assert_allclose(mixed.probs, [1.0])
+    assert next(batch_iterator(mixed, 2))["image"].shape[0] == 2
