@@ -1,7 +1,7 @@
 """Drive the PyTorch + CUDA port (the ROMP and BEV image paths, the TRACE
-video path with and without RAFT's optical flow, serving, and the training
-of ROMP (also with bf16 activations), TRACE and BEV, and 2D-pose
-pretraining) once on one GPU.
+video path with and without RAFT's optical flow, serving, the training
+of ROMP (also with bf16 activations), TRACE and BEV, 2D-pose pretraining,
+and evaluation with the accuracy loop) once on one GPU.
 
     python3 chip_smoke.py
 
@@ -94,7 +94,18 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     global atomics; BEV's training, pretraining and ROMP's bf16-activation
     training: s a step (the median of steps 3-8), img/s, peak memory,
     device busy / idle over 2 profiled steps (and BEV's skinning forward
-    and backward launches and device ms).
+    and backward launches and device ms);
+ eval: the evaluation metrics on the card (f32) against the same
+    functions in f64 on the CPU, and the 3DPW GT SMPL forward
+    (`make_gt_smpl_fn`, the skinning kernel) against the CPU's, both to
+    1e-5 of max|ref|; then the ROMP accuracy loop at full width
+    (`eval.convergence.main`: HRNet-W32 at 512x512 on synthetic scenes,
+    batch 8, 16 steps through the Trainer, a checkpoint every 8, each
+    restored and scored through `RompPipeline` by the 3DPW collector and
+    `pw3d_evaluate` on 12 held-out scenes, then the mixed and
+    bf16-activation paths, unfused and fused, against f32 on the last
+    checkpoint): the metrics per checkpoint, s a step, and the launches of
+    skinning forward and backward and of the chain.
 Then the kernels' JSON line, the card's name and power limit, and the
 result line.
 """
@@ -2424,6 +2435,107 @@ def phase_train_bf16_act(dev, smi):
     return by_path
 
 
+# the accuracy loop's check at full width: HRNet-W32 at 512x512 on
+# synthetic scenes, batch 8, EVAL_STEPS steps, a checkpoint every
+# EVAL_INTERVAL, EVAL_TRAIN / EVAL_HELD_OUT scenes
+EVAL_STEPS, EVAL_INTERVAL, EVAL_TRAIN, EVAL_HELD_OUT = 16, 8, 16, 12
+
+
+def phase_eval(dev, smi):
+    """The evaluation slice (`romp_tpu_torch/eval/`) on the card: the
+    metrics on cuda (f32) against the same functions in f64 on the CPU;
+    `make_gt_smpl_fn` on cuda against the CPU's (the skinning kernel
+    against the plain skinning); then the ROMP accuracy chain at full
+    width through its entry point (`eval.convergence.main`): the Trainer
+    with rotating checkpoints, each restored by `load_train_state` and
+    scored through `RompPipeline` by the 3DPW collector and
+    `pw3d_evaluate`, then `bf16_on_checkpoint`'s four rows on the last
+    one (mixed, bf16-act, each unfused and fused). Bars: 1e-5 of max|ref|
+    for the metrics and the GT SMPL; finite metrics for every checkpoint;
+    skinning forward, backward and the chain (f32 and bf16 I/O) launched
+    on the chain's path. Returns its launches."""
+    from romp_tpu_torch.eval import convergence as tconv
+    from romp_tpu_torch.eval import metrics as tmetrics
+    from romp_tpu_torch.eval import protocols as tprot
+
+    rng = np.random.RandomState(21)
+    gt = rng.randn(64, 24, 3) * 0.4
+    pred = gt + rng.randn(64, 24, 3) * 0.08
+    gv = rng.randn(16, V, 3) * 0.4
+    pv = gv + rng.randn(16, V, 3) * 0.05
+    fns = {"mpjpe": lambda m, a, b, *_: m.mpjpe(a, b, align_inds=(2, 5)),
+           "pa_mpjpe": lambda m, a, b, *_: m.pa_mpjpe(a, b),
+           "pve": lambda m, a, b, c, d: m.pve(c, d),
+           "pck": lambda m, a, b, *_: m.pck(a, b),
+           "auc": lambda m, a, b, *_: m.auc(a, b),
+           "acceleration_error": lambda m, a, b, *_:
+               m.acceleration_error(a, b)}
+    metric_errs = {}
+    for name, fn in fns.items():
+        ref = fn(tmetrics, *(torch.from_numpy(a) for a in (gt, pred, gv, pv)))
+        out = fn(tmetrics, *(torch.from_numpy(a).float().to(dev)
+                             for a in (gt, pred, gv, pv)))
+        check(out.device.type == "cuda", f"{name} left the card")
+        metric_errs[name] = rel_err(out.cpu().double(), ref)
+    check(max(metric_errs.values()) <= 1e-5, f"metrics on cuda {metric_errs}")
+
+    poses = (rng.randn(24, 72) * 0.3).astype(np.float32)
+    betas = (rng.randn(24, 10) * 0.5).astype(np.float32)
+    trans = rng.randn(24, 3).astype(np.float32)
+    assets = synthetic_assets(seed=0)
+    cpu_fn = tprot.make_gt_smpl_fn({"n": SmplModel(assets)}, "cpu")
+    reset_counts()
+    card_fn = tprot.make_gt_smpl_fn({"n": SmplModel(assets)}, dev)
+    j_card, r_card = card_fn("n", poses, betas, trans)
+    gt_smpl_launches = launch_counts()["skinning"]
+    j_cpu, r_cpu = cpu_fn("n", poses, betas, trans)
+    gt_smpl_errs = {"joints": rel_err(torch.from_numpy(j_card),
+                                      torch.from_numpy(j_cpu)),
+                    "global_rotations": rel_err(torch.from_numpy(r_card),
+                                                torch.from_numpy(r_cpu))}
+    check(max(gt_smpl_errs.values()) <= 1e-5 and gt_smpl_launches >= 1,
+          f"make_gt_smpl_fn on cuda {gt_smpl_errs}, {gt_smpl_launches}")
+    phase("eval", "card vs cpu", metric_rel_errs=metric_errs,
+          gt_smpl_rel_errs=gt_smpl_errs,
+          gt_smpl_skinning_launches=gt_smpl_launches, bar=1e-5)
+
+    out = _build.BUILD_DIR / "smoke_eval.json"
+    if out.exists():
+        out.unlink()
+    reset_counts()
+    t0 = time.perf_counter()
+    tconv.main(["--GPU", str(dev.index or 0), "--backbone", "hrnet32",
+                "--input_size", "512", "--steps", str(EVAL_STEPS),
+                "--interval", str(EVAL_INTERVAL), "--n_train",
+                str(EVAL_TRAIN), "--n_eval", str(EVAL_HELD_OUT), "--batch",
+                "8", "--no_assert", "--out", str(out), "--workdir",
+                str(_build.BUILD_DIR / "smoke_eval")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    n = launch_counts()
+    sec, = json.loads(out.read_text()).values()     # full_scale_512
+    check(sec["steps"] == list(range(EVAL_INTERVAL, EVAL_STEPS + 1,
+                                     EVAL_INTERVAL)), f"checkpoints {sec}")
+    metrics = ("MPJPE", "MPJPE_PA", "PCK", "AUC", "MPJAE", "MPJAE_PA")
+    check(all(np.isfinite(sec[k]).all() and len(sec[k]) == len(sec["steps"])
+              for k in metrics), f"3DPW metrics {sec}")
+    rows = sec["bf16_on_trained"]
+    check(sorted(rows) == sorted(tconv.BF16_VARIANTS)
+          and all(np.isfinite(r["conf_max_delta"]) for r in rows.values()),
+          f"bf16_on_checkpoint {rows}")
+    check(n["skinning"] >= 1 and n["skinning_bwd"] >= EVAL_STEPS
+          and n["basic_chain"] >= 1 and n["basic_chain_bf16"] >= 1,
+          f"eval launches {n}")
+    phase("eval", "romp chain", backbone="hrnet32", input_size=512, batch=8,
+          steps=EVAL_STEPS, interval=EVAL_INTERVAL, n_train=EVAL_TRAIN,
+          n_eval=EVAL_HELD_OUT, seconds=seconds,
+          s_per_step=sec["s_per_step"], train_seconds=sec["train_seconds"],
+          eval_seconds=sec["eval_seconds"],
+          per_checkpoint={k: sec[k] for k in ("steps",) + metrics},
+          bf16_on_checkpoint=rows, launches=n, card=smi)
+    return {"eval": n}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run "
@@ -2493,6 +2605,7 @@ def main():
     phase_bev_train_card_vs_cpu(dev)
     new_train_launches.update(phase_pretrain(dev, smi))
     new_train_launches.update(phase_train_bf16_act(dev, smi))
+    new_train_launches.update(phase_eval(dev, smi))
 
     meta = {
         "skinning": ("romp_tpu_torch/csrc/lbs.cu",

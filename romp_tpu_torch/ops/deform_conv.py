@@ -59,8 +59,10 @@ TILE_H, TILE_W = 8, 16
 BWD_PLAN_KEYS = ("ctas", "ey", "ex", "wrows", "dw_smem", "smem",
                  "scratch_floats")
 BF16_GRAD = (
-    "deform_conv2d: the bf16 variant has no backward; training with bf16 "
-    "activations is not ported (ROADMAP queue 1, after BEV training)")
+    "deform_conv2d: the bf16 variant has no backward. TRACE trains in f32: "
+    "its train step has no bf16-activation mode (the JAX package's "
+    "TraceTrainConfig has no act_dtype), so the bf16 deform only runs in "
+    "inference")
 
 
 def deform_smem(G: int, Cg: int) -> int:

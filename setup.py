@@ -31,6 +31,7 @@ setup(
             "romp.serve=romp_tpu.serve:main",
             "romp_torch.serve=romp_tpu_torch.serve:main",
             "romp_torch.train=romp_tpu_torch.train.launch:main",
+            "romp_torch.eval_collect=romp_tpu_torch.eval.collectors:main",
         ],
     },
 )

@@ -151,7 +151,8 @@ def test_port_runs_without_jax():
         for name in ("train.launch", "train.trainer", "train.train_step",
                      "train.data.loader", "models.resnet", "config",
                      "utils.tensorboard", "train.trace_train_step",
-                     "train.video_losses", "train.data.video_dataset"):
+                     "train.video_losses", "train.data.video_dataset",
+                     "eval.metrics", "eval.protocols", "eval.convergence"):
             assert "romp_tpu_torch." + name in sys.modules, name
         from romp_tpu_torch.models.bev import init_bev_params
         from romp_tpu_torch.models.raft import (
