@@ -1,7 +1,8 @@
 """Drive the PyTorch + CUDA port (the ROMP and BEV image paths, the TRACE
 video path with and without RAFT's optical flow, serving, the training
 of ROMP (also with bf16 activations), TRACE and BEV, 2D-pose pretraining,
-and evaluation with the accuracy loop) once on one GPU.
+evaluation with the accuracy loop, the SMPL family, the PnP solvers, and
+model export through torch.export) once on one GPU.
 
     python3 chip_smoke.py
 
@@ -15,8 +16,10 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     kernel's device time (torch.profiler) and the least time the card could
     take (bound; for skinning and the deform read both for the split-TF32
     tensor-core work and, as the CUDA-core kernels were, for f32);
-    skinning at N = 64, 1024 and 4096 (the CLI, batch 16 and batch 64 x 64
-    slots); the chain at batch 1, 2 and 64 for each branch shape, beside
+    skinning at N = 64, 512, 1024 and 4096 (the CLI, the train steps,
+    batch 16 and batch 64 x 64 slots), forward and backward, each timed
+    through its custom op (`ms`) and through the bare ctypes launch
+    (`direct_ms`); the chain at batch 1, 2 and 64 for each branch shape, beside
     the unfused mixed branch it replaces (`unfused_ms`); and a check that
     the SASS of every chain, skinning and deform kernel holds tensor-core
     instructions (HMMA / HGMMA, by cuobjdump); the bf16 variants: the chain
@@ -44,7 +47,7 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     batches, `launch.main` for 3 steps over a seeded 16-image pack, and
     ResNet-50 for 3 steps. Then TRACE's training at the recipe
     (configs/trace.yml: 6 clips x 10 frames, 16 tracks, f32): `launch.main`
-    for 3 steps over a seeded video pack (the frozen backbone from the
+    for 2 steps over a seeded video pack (the frozen backbone from the
     smoke ROMP weights, RAFT's flow from the smoke RAFT weights), and
     `trace_train_step` for 8 steps on device-made batches. Then BEV's
     training at the v6 recipe (configs/v6_bev.yml: HRNet-W32 at 512x512,
@@ -105,7 +108,19 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     `pw3d_evaluate` on 12 held-out scenes, then the mixed and
     bf16-activation paths, unfused and fused, against f32 on the last
     checkpoint): the metrics per checkpoint, s a step, and the launches of
-    skinning forward and backward and of the chain.
+    skinning forward and backward and of the chain;
+ family: SMPL-X, FLAME and MANO (`smpl/family.py`) on synthetic assets at
+    the real shapes, batch 64, the card against the CPU in f32, with both
+    wall times;
+ pnp: `lm_pnp` 6-DoF and 4-DoF at B = 512 on 24 SMPL joints, and
+    `monte_carlo_pnp` (128 samples, 4 iterations) fed the same draws on
+    both sides, the card against the CPU in f32, with both wall times;
+ export: `export_romp` (HRNet-W32, 512x512) at batch 1 and 8 and
+    `export_bev` at batch 1 on the card, saved under build/, loaded and
+    run: each loaded
+    program against eager inference on the same weights, the skinning
+    kernel's launches from inside the loaded program (the custom op), the
+    export and load seconds, the loaded program's and eager ms.
 Then the kernels' JSON line, the card's name and power limit, and the
 result line.
 """
@@ -163,9 +178,12 @@ from romp_tpu_torch.ops.deform_conv import (  # noqa: E402
 from romp_tpu_torch.ops.fused_chain import (  # noqa: E402
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain, launch_plan,
 )
+from romp_tpu_torch.ops import epropnp_mc as tmc  # noqa: E402
+from romp_tpu_torch.ops import pnp as tpnp  # noqa: E402
+from romp_tpu_torch.ops.rotations import axis_angle_to_matrix  # noqa: E402
 from romp_tpu_torch.ops.lbs import (  # noqa: E402
-    skinning, skinning_backward, skinning_bwd_plain, skinning_plain,
-    skinning_plan,
+    _skinning_bwd_cuda, _skinning_cuda, skinning, skinning_backward,
+    skinning_bwd_plain, skinning_plain, skinning_plan,
 )
 from romp_tpu_torch.pipeline.bev_pipeline import (  # noqa: E402
     BevConfig, BevPipeline,
@@ -182,6 +200,9 @@ from romp_tpu_torch.serve import (  # noqa: E402
 from romp_tpu_torch.smpl.body_model import (  # noqa: E402
     SmplModel, synthetic_assets,
 )
+from romp_tpu_torch.smpl import family as tfam  # noqa: E402
+from romp_tpu_torch.smpl.body_model import smpl_forward  # noqa: E402
+from romp_tpu_torch.tools import export_program as texp  # noqa: E402
 from romp_tpu_torch.config import load_config  # noqa: E402
 from romp_tpu_torch.train import bev_train_step as tbts  # noqa: E402
 from romp_tpu_torch.train import launch as train_launch  # noqa: E402
@@ -223,6 +244,9 @@ TRACE_CLIP = 8
 # configs/trace.yml: clips a step, frames a clip, supervised tracks
 TRACE_TRAIN_CLIPS, TRACE_TRAIN_T, TRACE_TRAIN_N = 6, 10, 16
 TRACE_TRAIN_STEPS = 8
+# launch.main's TRACE steps (each runs RAFT and the backbone per clip); 2
+# keeps the whole run inside its time limit
+TRACE_LAUNCH_STEPS = 2
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -230,7 +254,12 @@ TF32_FLOP_PER_S = 495e12
 BF16_FLOP_PER_S = 989e12
 
 
+T0 = time.perf_counter()
+
+
 def phase(n, title, **fields):
+    """One phase line, with the seconds since the script started."""
+    fields["elapsed_s"] = time.perf_counter() - T0
     print(f"phase {n} {title}: " + json.dumps(fields), flush=True)
 
 
@@ -360,6 +389,7 @@ def phase_kernels(dev):
             shape=f"N={n},V={V}", plan=skinning_plan(n, V)._asdict(),
             max_abs_err=float((out - ref).abs().max()),
             rel_err=err, ms=time_ms(lambda: skinning(a16, w, vpos)),
+            direct_ms=time_ms(lambda: _skinning_cuda(a16, w, vpos)),
             device_ms=device_ms(lambda: skinning(a16, w, vpos),
                                 {"skinning_tf32_kernel": 1}),
             plain_ms=time_ms(lambda: skinning_plain(a16, w, vpos)),
@@ -407,6 +437,7 @@ def skin_bwd_row(dev, g, n):
         max_abs_err=float(max((da - ra).abs().max(), (dv - rv).abs().max())),
         rel_err=err,
         ms=time_ms(lambda: skinning_backward(a16, w, vpos, cot)),
+        direct_ms=time_ms(lambda: _skinning_bwd_cuda(a16, w, vpos, cot)),
         device_ms=device_ms(lambda: skinning_backward(a16, w, vpos, cot),
                             {"skinning_bwd_tf32_kernel": 1,
                              "skinning_bwd_reduce_kernel": 1}),
@@ -1901,7 +1932,7 @@ def phase_trace_train(dev, raft_ckpt, backbone_ckpt):
     augmentation, the frozen backbone's features from the smoke ROMP
     weights, RAFT's flow from the smoke RAFT weights, all assembled by a
     `PrefetchLoader` worker thread while the main thread steps, with TF32
-    held off in both for the run) for 3 steps; then
+    held off in both for the run) for TRACE_LAUNCH_STEPS steps; then
     `trace_train_step` for TRACE_TRAIN_STEPS steps on device-made batches,
     each ended by a device barrier (its times are phase 6's). Each step
     finite, the loss moving, the deform's forward and backward kernels
@@ -1926,19 +1957,21 @@ def phase_trace_train(dev, raft_ckpt, backbone_ckpt):
     t0 = time.perf_counter()
     check(train_launch.main(
         ["--config", "configs/trace.yml", "--data_root", str(root / "data"),
-         "--max_steps", "3", "--GPU", str(dev.index or 0),
-         "data.datasets=smoke_clips", f"train.checkpoint_dir={ck}",
+         "--max_steps", str(TRACE_LAUNCH_STEPS), "--GPU",
+         str(dev.index or 0), "data.datasets=smoke_clips",
+         f"train.checkpoint_dir={ck}",
          "train.log_every=1", "train.num_workers=1",
          f"trace.raft_model_path={raft_ckpt}",
          f"trace.backbone_ckpt={backbone_ckpt}"]) == 0, "launch.main trace")
     torch.cuda.synchronize()
     by_path["trace-train"] = n = launch_counts()
     logged = [json.loads(line) for line in log.read_text().splitlines()]
-    check([r["step"] for r in logged] == [1, 2, 3]
+    check([r["step"] for r in logged]
+          == list(range(1, TRACE_LAUNCH_STEPS + 1))
           and all(np.isfinite(r[k]) for r in logged for k in TRACE_LOSSES),
           f"trace launch.main log {logged}")
     check((ck / "trace_last.npz").exists(), "trace_last.npz not written")
-    per_run = 3 * TRACE_TRAIN_CLIPS
+    per_run = TRACE_LAUNCH_STEPS * TRACE_TRAIN_CLIPS
     check(n["deform_conv_bwd"] == per_run and n["deform_conv"] >= per_run,
           f"trace launch.main launches {n}")
     out["launch"] = dict(seconds=time.perf_counter() - t0, log=logged[-1],
@@ -2536,6 +2569,223 @@ def phase_eval(dev, smi):
     return {"eval": n}
 
 
+def host_ms(fn, reps=5):
+    """Median wall ms of fn() ended by a synchronize (after one warm-up)."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_family(dev, smi):
+    """SMPL-X / FLAME / MANO (`smpl/family.py`) on synthetic assets at the
+    real shapes, batch 64: the card against the CPU in f32 (bar 1e-5 of
+    max|ref|: f32 blend-shape products, chain and skinning einsums summed
+    in other orders), with both wall times."""
+    rows = []
+    for kind in ("smplx", "flame", "mano"):
+        assets = tfam.synthetic_family_assets(kind, seed=0)
+        cpu_m = tfam.FamilyModel(assets, device="cpu")
+        card_m = tfam.FamilyModel(assets, device=dev)
+        rng = np.random.RandomState(5)
+        betas = torch.from_numpy(rng.randn(64, 10).astype(np.float32))
+        pose = torch.from_numpy((rng.randn(64, cpu_m.num_joints * 3) * 0.3
+                                 ).astype(np.float32))
+        v_ref, j_ref = tfam.family_forward(cpu_m, betas, pose)
+        bd, pd = betas.to(dev), pose.to(dev)
+        v, j = tfam.family_forward(card_m, bd, pd)
+        errs = dict(verts=rel_err(v.cpu(), v_ref), joints=rel_err(j.cpu(),
+                                                                  j_ref))
+        check(max(errs.values()) <= 1e-5, f"family {kind}: {errs}")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tfam.family_forward(cpu_m, betas, pose)
+        rows.append(dict(
+            kind=kind, verts=int(assets.v_template.shape[0]),
+            joints=cpu_m.num_joints, batch=64, rel_errs=errs, bar=1e-5,
+            card_ms=host_ms(lambda: tfam.family_forward(card_m, bd, pd)),
+            cpu_ms=(time.perf_counter() - t0) / 3 * 1e3, card=smi))
+    for row in rows:
+        phase("family", "card vs cpu", **row)
+    return rows
+
+
+def pnp_problem(B, seed=7):
+    """B camera-pose problems on the 24 SMPL joints of seeded synthetic
+    bodies: the joints posed by a random rotation (0.2 rad) and a
+    translation 4-7 m away, projected at f = 548 into 512x512 with 1 px of
+    noise."""
+    rng = np.random.RandomState(seed)
+    model = SmplModel(synthetic_assets(seed=0))
+    _, joints = smpl_forward(model, torch.from_numpy(
+        rng.randn(B, 10).astype(np.float32)), torch.from_numpy(
+        (rng.randn(B, 72) * 0.2).astype(np.float32)))
+    pts3d = joints[:, :24].numpy()
+    aa = (rng.randn(B, 3) * 0.2).astype(np.float32)
+    t = np.stack([rng.uniform(-0.5, 0.5, B), rng.uniform(-0.5, 0.5, B),
+                  rng.uniform(4, 7, B)], -1).astype(np.float32)
+    R = axis_angle_to_matrix(torch.from_numpy(aa)).numpy()
+    cam = np.einsum("bij,bnj->bni", R, pts3d) + t[:, None]
+    pts2d = cam[..., :2] / cam[..., 2:] * 548.0 + 256.0
+    pts2d += rng.randn(*pts2d.shape)
+    return (torch.from_numpy(pts3d), torch.from_numpy(pts2d.astype(
+        np.float32)), torch.ones(B, 24))
+
+
+def phase_pnp(dev, smi):
+    """`lm_pnp` 6-DoF and 4-DoF at B = 512 on 24 SMPL joints, and
+    `monte_carlo_pnp` (128 samples, 4 iterations) on the first 64 of the
+    problems fed the same draws (two CPU generators of one seed), in f64
+    and f32: the card against the CPU, with both wall times. Bars: the LM
+    pose to 1e-3 of max|pose| (a strict-`<` LM gate can take one tiny
+    last step on one side only, 1e-5 in f32 on the CPU tests), in f64 the
+    Monte-Carlo samples to 1e-6 of max|sample| and each log-weight to
+    1e-6 of max(1, |itself|), in f32 the LM mode to 1e-3."""
+    c = torch.tensor([256.0, 256.0])
+    cpu = pnp_problem(512)
+    card = tuple(x.to(dev) for x in cpu)
+    rows = []
+    for dof in (6, 4):
+        def run(args, center):
+            return tpnp.lm_pnp(*args, 548.0, center, iters=10, dof=dof)
+
+        ref = run(cpu, c)
+        out = run(card, c.to(dev))
+        pose_ref = torch.cat([ref.rotation_aa, ref.translation], -1)
+        pose = torch.cat([out.rotation_aa, out.translation], -1).cpu()
+        d = (pose - pose_ref).abs().max(-1).values / pose_ref.abs().max()
+        row = dict(solver="lm_pnp", dof=dof, batch=512, joints=24, iters=10,
+                   pose_rel_err=float(d.max()),
+                   pose_rel_err_median=float(d.median()),
+                   cost_median=float(ref.cost.median()), bar=1e-3)
+        check(row["pose_rel_err"] <= 1e-3, f"lm_pnp dof={dof}: {row}")
+        t0 = time.perf_counter()
+        run(cpu, c)
+        row.update(cpu_ms=(time.perf_counter() - t0) * 1e3,
+                   card_ms=host_ms(lambda: run(card, c.to(dev))), card=smi)
+        rows.append(row)
+
+    def mc(args, center):
+        return tmc.monte_carlo_pnp(torch.Generator().manual_seed(3),
+                                   *(a[:64] for a in args), 548.0, center,
+                                   mc_samples=128, num_iter=4)
+
+    for dtype in (torch.float64, torch.float32):
+        cpu_t = tuple(a.to(dtype) for a in cpu)
+        card_t = tuple(a.to(dtype) for a in card)
+        ref, out = mc(cpu_t, c.to(dtype)), mc(card_t, c.to(dev, dtype))
+        lw, lw_ref = out.sample_logweights.cpu(), ref.sample_logweights
+        lw_rel = float(((lw - lw_ref).abs()
+                        / lw_ref.abs().clamp(min=1.0)).max())
+        row = dict(solver="monte_carlo_pnp", dtype=str(dtype)[6:],
+                   batch=64, mc_samples=128, num_iter=4,
+                   pose_opt_rel_err=rel_err(out.pose_opt.cpu(),
+                                            ref.pose_opt),
+                   samples_rel_err=rel_err(out.pose_samples.cpu(),
+                                           ref.pose_samples),
+                   logweights_rel_err=lw_rel)
+        check(bool(torch.isfinite(lw).all()), f"monte_carlo_pnp: {row}")
+        if dtype == torch.float64:
+            # each refit weighs the samples by softmax(-cost), costs of 1e3
+            # to 1e19: a rounding difference in a cost moves the next
+            # proposal by cost x eps, so the iterations compound the two
+            # sides' roundings (f32: 4e-5 of the samples after four). f64
+            # keeps that, and a last LM step taken on one side only
+            # (2.5e-9 in f64 on the CPU tests), below 1e-6; f32's
+            # distances are reported
+            row["bar"] = 1e-6
+            check(max(row["samples_rel_err"], lw_rel) <= 1e-6,
+                  f"monte_carlo_pnp: {row}")
+        else:
+            row["bar"] = 1e-3
+            check(row["pose_opt_rel_err"] <= 1e-3, f"monte_carlo_pnp: {row}")
+        t0 = time.perf_counter()
+        mc(cpu_t, c.to(dtype))
+        row.update(cpu_ms=(time.perf_counter() - t0) * 1e3,
+                   card_ms=host_ms(lambda: mc(card_t, c.to(dev, dtype))),
+                   card=smi)
+        rows.append(row)
+    for row in rows:
+        phase("pnp", "card vs cpu", **row)
+    return rows
+
+
+def phase_export(dev, params, bev_params, smi):
+    """The export tool on the card: `export_romp` (HRNet-W32 512x512) and
+    `export_bev` (512x512) at batch 1, and ROMP at batch 8 too (BEV's
+    batch 8 is left out to keep the whole run inside its time limit),
+    saved under build/ from checkpoint files of the seeded weights, loaded
+    (`load_exported`) and run. Each loaded program's outputs against eager `romp_inference` /
+    `bev_inference` through the pipeline on the same weights (bar 1e-5 of
+    each output's max|ref|, the validity masks equal): the same cuDNN
+    convs and kernels in the same order. `skinning.launches` must grow
+    during the loaded program's run (the op's CUDA route). Times: export
+    and load seconds, and the loaded program's and eager ms (medians of
+    host-clock calls ended by a synchronize). Returns the skinning
+    launches of the loaded programs' checked runs."""
+    out_dir = _build.BUILD_DIR / "export"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    ckpts = {"romp": out_dir / "romp_weights.pth",
+             "bev": out_dir / "bev_weights.pth"}
+    torch.save(params, ckpts["romp"])
+    torch.save(bev_params, ckpts["bev"])
+    pipes = {
+        "romp": RompPipeline(params, SmplModel(synthetic_assets(seed=0)),
+                             RompConfig(max_person=8), dev),
+        "bev": BevPipeline(bev_params,
+                           SmplModel(synthetic_assets(seed=0, num_betas=11)),
+                           SmplModel(synthetic_assets(seed=1, num_betas=10)),
+                           BevConfig(max_person=8), dev)}
+    exporters = {"romp": texp.export_romp, "bev": texp.export_bev}
+    rows, launches = [], dict.fromkeys(KERNELS, 0)
+    for model, batches in (("romp", (1, 8)), ("bev", (1,))):
+        for batch in batches:
+            path = out_dir / f"{model}_b{batch}.pt2"
+            t0 = time.perf_counter()
+            exporters[model](str(ckpts[model]), str(path), batch=batch,
+                             device=dev)
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = texp.load_exported(str(path))
+            load_s = time.perf_counter() - t0
+            size = pipes[model].cfg.input_size
+            images = torch.from_numpy((np.random.RandomState(batch).rand(
+                batch, size, size, 3) * 255).astype(np.float32)).to(dev)
+            reset_counts()
+            out = loaded(images)
+            torch.cuda.synchronize()
+            n = launch_counts()
+            ref = pipes[model](images)
+            check(n["skinning"] >= 1, f"export {model}: skinning {n}")
+            check(set(out) == set(ref) and torch.equal(out["mask"],
+                                                       ref["mask"]),
+                  f"export {model}: outputs or masks differ")
+            errs = {k: rel_err(out[k], r) for k, r in ref.items()
+                    if r.is_floating_point()}
+            check(max(errs.values()) <= 1e-5, f"export {model}: {errs}")
+            for k in launches:
+                launches[k] += n[k]
+            nodes = [str(x.target) for x in loaded.program.graph.nodes
+                     if x.op == "call_function"]
+            rows.append(dict(
+                model=model, batch=batch, export_s=export_s, load_s=load_s,
+                pt2_mb=path.stat().st_size / 2 ** 20, graph_ops=len(nodes),
+                skinning_nodes=nodes.count("romp_tpu_torch.skinning.default"),
+                skinning_launches=n["skinning"], max_rel_err=max(
+                    errs.values()), rel_errs=errs, bar=1e-5,
+                loaded_ms=host_ms(lambda: loaded(images)),
+                eager_ms=host_ms(lambda: pipes[model](images)), card=smi))
+            del loaded
+    for row in rows:
+        phase("export", "loaded vs eager", **row)
+    return {"export": launches}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run "
@@ -2606,6 +2856,9 @@ def main():
     new_train_launches.update(phase_pretrain(dev, smi))
     new_train_launches.update(phase_train_bf16_act(dev, smi))
     new_train_launches.update(phase_eval(dev, smi))
+    phase_family(dev, smi)
+    phase_pnp(dev, smi)
+    new_train_launches.update(phase_export(dev, params, bev_params, smi))
 
     meta = {
         "skinning": ("romp_tpu_torch/csrc/lbs.cu",
@@ -2660,7 +2913,10 @@ def main():
             library_ms=None,    # no single PyTorch call computes it
             shape="; ".join(r["shape"] for r in timed),
             **({"f32_bound_ms": sum(r["f32_bound_ms"] for r in timed)}
-               if "f32_bound_ms" in timed[0] else {})))
+               if "f32_bound_ms" in timed[0] else {}),
+            # skinning through its custom op (ms) and the bare launch
+            **({"direct_ms": sum(r["direct_ms"] for r in timed)}
+               if "direct_ms" in timed[0] else {})))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -141,7 +141,8 @@ def load_smpl_assets_flexible(path: Optional[str], num_betas: int = 10,
         )
     print(f"WARNING: SMPL assets {path!r} not found — using synthetic "
           "placeholder geometry (outputs are NOT valid human meshes). "
-          "Prepare the official model files with the JAX package's "
-          "`romp_tpu.tools.prepare_smpl`.",
+          "Prepare the official model files with "
+          "`romp_torch.prepare_smpl` (python -m "
+          "romp_tpu_torch.tools.prepare_smpl).",
           file=sys.stderr)
     return synthetic_assets(seed=seed, num_betas=num_betas)

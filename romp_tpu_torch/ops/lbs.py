@@ -20,10 +20,15 @@ with vh = [v_posed; 1], rows 12-15 of dA16 zero and no gradient for the
 lbs weights (JAX gives them a zero cotangent). On CUDA tensors it is a
 second kernel of `csrc/lbs.cu` (`skinning_backward`), which recomputes T16
 in registers as the forward does; `skinning_bwd_plain` is its twin.
+
+Both are bound as `torch.library` custom ops, `romp_tpu_torch::skinning`
+and `romp_tpu_torch::skinning_bwd` (the second the first's registered
+autograd), so that an exported program (`tools/export_program.py`) holds
+the kernel as a node.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -151,17 +156,33 @@ def _check_operands(what, a16, weights, v_posed, *more):
     return B, V
 
 
-def skinning_backward(a16: torch.Tensor, weights: torch.Tensor,
-                      v_posed: torch.Tensor, g: torch.Tensor):
-    """The backward kernel (`csrc/lbs.cu` `romp_skinning_bwd_f32`) for CUDA
-    tensors, `skinning_bwd_plain` for CPU tensors: (dA16, dv). Its dA16 is
-    summed over vertex tiles in a second pass, in a fixed order: no float
-    atomics, so a step's result does not depend on the schedule.
+def _skinning_cuda(a16: torch.Tensor, weights: torch.Tensor,
+                   v_posed: torch.Tensor) -> torch.Tensor:
+    """The forward kernel (`csrc/lbs.cu` `romp_skinning_f32`): the CUDA
+    implementation of `romp_tpu_torch::skinning`."""
+    B, V = _check_operands("skinning", a16, weights, v_posed)
+    out = torch.empty((B, 3, V), dtype=torch.float32, device=a16.device)
+    if B == 0:
+        return out
+    if a16.data_ptr() % 16:      # the kernel's 16-byte copies of A16 rows
+        a16 = a16.clone()
+    plan = skinning_plan(B, V)
+    lib = _build.load()
+    with torch.cuda.device(a16.device):
+        err = lib.romp_skinning_f32(
+            a16.data_ptr(), weights.data_ptr(), v_posed.data_ptr(),
+            out.data_ptr(), B, V, 24, plan.warps, plan.persons,
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "romp_skinning_f32")
+    skinning.launches += 1
+    return out
 
-    `skinning_backward.launches` counts kernel launches (the pair of
-    kernels is one launch)."""
-    if a16.device.type == "cpu":
-        return skinning_bwd_plain(a16, weights, v_posed, g)
+
+def _skinning_bwd_cuda(a16: torch.Tensor, weights: torch.Tensor,
+                       v_posed: torch.Tensor, g: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernel pair (`csrc/lbs.cu` `romp_skinning_bwd_f32`):
+    the CUDA implementation of `romp_tpu_torch::skinning_bwd`."""
     B, V = _check_operands("skinning_backward", a16, weights, v_posed,
                            ("g", g))
     da16 = torch.empty((B, 16, 24), dtype=torch.float32, device=a16.device)
@@ -186,59 +207,72 @@ def skinning_backward(a16: torch.Tensor, weights: torch.Tensor,
     return da16, dv
 
 
+# The kernels as custom operators, so that `torch.export` (whose fake
+# tensors have no storage for a ctypes call) records them as graph nodes
+# and a loaded program calls them again: CUDA tensors take the kernels,
+# CPU tensors the plain versions; the fake implementations give the
+# outputs' shapes and types (those of the inputs: the CPU tests run f64).
+_skinning_op = torch.library.custom_op(
+    "romp_tpu_torch::skinning", _skinning_cuda, mutates_args=(),
+    device_types="cuda")
+_skinning_op.register_kernel("cpu")(skinning_plain)
+_skinning_bwd_op = torch.library.custom_op(
+    "romp_tpu_torch::skinning_bwd", _skinning_bwd_cuda, mutates_args=(),
+    device_types="cuda")
+_skinning_bwd_op.register_kernel("cpu")(skinning_bwd_plain)
+
+
+@_skinning_op.register_fake
+def _skinning_fake(a16, weights, v_posed):
+    return v_posed.new_empty(v_posed.shape)
+
+
+@_skinning_bwd_op.register_fake
+def _skinning_bwd_fake(a16, weights, v_posed, g):
+    return a16.new_empty(a16.shape), v_posed.new_empty(v_posed.shape)
+
+
+def _skinning_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _skinning_grad(ctx, g):
+    """`pallas_lbs.py:113-126`: gradients for a16 and v_posed, none for
+    the lbs weights."""
+    a16, weights, v_posed = ctx.saved_tensors
+    da16, dv = skinning_backward(a16, weights, v_posed, g.contiguous())
+    return da16, None, dv
+
+
+_skinning_op.register_autograd(_skinning_grad, setup_context=_skinning_setup)
+
+
+def skinning_backward(a16: torch.Tensor, weights: torch.Tensor,
+                      v_posed: torch.Tensor, g: torch.Tensor):
+    """The backward kernel (`csrc/lbs.cu` `romp_skinning_bwd_f32`) for CUDA
+    tensors, `skinning_bwd_plain` for CPU tensors: (dA16, dv), through the
+    custom op `romp_tpu_torch::skinning_bwd`. Its dA16 is summed over
+    vertex tiles in a second pass, in a fixed order: no float atomics, so a
+    step's result does not depend on the schedule.
+
+    `skinning_backward.launches` counts kernel launches (the pair of
+    kernels is one launch)."""
+    return torch.ops.romp_tpu_torch.skinning_bwd(a16, weights, v_posed, g)
+
+
 skinning_backward.launches = 0
-
-
-class _Skinning(torch.autograd.Function):
-    """skinning with the analytic backward (`pallas_lbs.py:99-129`)."""
-
-    @staticmethod
-    def forward(ctx, a16, weights, v_posed):
-        ctx.save_for_backward(a16, weights, v_posed)
-        return _skinning_forward(a16, weights, v_posed)
-
-    @staticmethod
-    def backward(ctx, g):
-        a16, weights, v_posed = ctx.saved_tensors
-        da16, dv = skinning_backward(a16, weights, v_posed, g.contiguous())
-        return da16, None, dv
 
 
 def skinning(a16: torch.Tensor, weights: torch.Tensor,
              v_posed: torch.Tensor) -> torch.Tensor:
     """Skinning: the CUDA kernel for CUDA tensors, `skinning_plain` for CPU
-    tensors. a16: (B, 16, 24); weights: (V, 24); v_posed: (B, 3, V), f32.
-    Differentiable in a16 and v_posed (`skinning_backward`); the weights
-    get no gradient.
+    tensors, through the custom op `romp_tpu_torch::skinning`. a16:
+    (B, 16, 24); weights: (V, 24); v_posed: (B, 3, V), f32. Differentiable
+    in a16 and v_posed (`skinning_backward`); the weights get no gradient.
 
     `skinning.launches` counts forward kernel launches.
     """
-    if torch.is_grad_enabled() and (a16.requires_grad
-                                    or v_posed.requires_grad):
-        return _Skinning.apply(a16, weights, v_posed)
-    return _skinning_forward(a16, weights, v_posed)
-
-
-def _skinning_forward(a16: torch.Tensor, weights: torch.Tensor,
-                      v_posed: torch.Tensor) -> torch.Tensor:
-    if a16.device.type == "cpu":
-        return skinning_plain(a16, weights, v_posed)
-    B, V = _check_operands("skinning", a16, weights, v_posed)
-    out = torch.empty((B, 3, V), dtype=torch.float32, device=a16.device)
-    if B == 0:
-        return out
-    if a16.data_ptr() % 16:      # the kernel's 16-byte copies of A16 rows
-        a16 = a16.clone()
-    plan = skinning_plan(B, V)
-    lib = _build.load()
-    with torch.cuda.device(a16.device):
-        err = lib.romp_skinning_f32(
-            a16.data_ptr(), weights.data_ptr(), v_posed.data_ptr(),
-            out.data_ptr(), B, V, 24, plan.warps, plan.persons,
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(err, "romp_skinning_f32")
-    skinning.launches += 1
-    return out
+    return torch.ops.romp_tpu_torch.skinning(a16, weights, v_posed)
 
 
 skinning.launches = 0

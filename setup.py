@@ -29,8 +29,15 @@ setup(
             "bev.prepare_smil=romp_tpu.tools.prepare_smil:main",
             "romp.convert_checkpoint=romp_tpu.tools.convert_checkpoint:main",
             "romp.serve=romp_tpu.serve:main",
+            "romp_torch=romp_tpu_torch.cli.romp:main",
+            "bev_torch=romp_tpu_torch.cli.bev:main",
+            "trace2_torch=romp_tpu_torch.cli.trace:main",
+            "romp_torch.prepare_smpl=romp_tpu_torch.tools.prepare_smpl:main",
+            "bev_torch.prepare_smil=romp_tpu_torch.tools.prepare_smil:main",
+            "romp_torch.export=romp_tpu_torch.tools.export_program:main",
             "romp_torch.serve=romp_tpu_torch.serve:main",
             "romp_torch.train=romp_tpu_torch.train.launch:main",
+            "romp_torch.pretrain=romp_tpu_torch.train.pretrain:main",
             "romp_torch.eval_collect=romp_tpu_torch.eval.collectors:main",
         ],
     },

@@ -135,7 +135,8 @@ def test_gpu_flag_never_falls_back_to_cpu():
 def test_port_runs_without_jax():
     """With `import jax`, `import optax` and `import romp_tpu` made to fail,
     every module of the port imports (`romp_tpu_torch.serve` and
-    `romp_tpu_torch.train`, TRACE's training among them), and the tiny ROMP
+    `romp_tpu_torch.train`, TRACE's training among them, the tools and the
+    Blender addon without `bpy`), and the tiny ROMP
     slice (directly and behind the port's server), the tiny TRACE slice
     with RAFT's flow and the tiny BEV slice run on the CPU."""
     code = textwrap.dedent("""
@@ -152,7 +153,10 @@ def test_port_runs_without_jax():
                      "train.data.loader", "models.resnet", "config",
                      "utils.tensorboard", "train.trace_train_step",
                      "train.video_losses", "train.data.video_dataset",
-                     "eval.metrics", "eval.protocols", "eval.convergence"):
+                     "eval.metrics", "eval.protocols", "eval.convergence",
+                     "ops.pnp", "ops.epropnp_mc", "smpl.family",
+                     "tools.export_program", "tools.prepare_smpl",
+                     "tools.show_results", "vis.blender_addon"):
             assert "romp_tpu_torch." + name in sys.modules, name
         from romp_tpu_torch.models.bev import init_bev_params
         from romp_tpu_torch.models.raft import (
