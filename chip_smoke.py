@@ -10,14 +10,16 @@ Phases, one line each; any failure raises and the exit code is nonzero:
  1. device: a CUDA device is required (nothing here runs on the CPU instead);
  2. build: compile the hand-written kernels from romp_tpu_torch/csrc, with
     the chain, skinning and deform kernels' registers, spills and static
-    shared memory (ptxas -v), and their dynamic shared memory;
+    shared memory (ptxas -v), and their dynamic shared memory; fails
+    unless the skinning backward fits two CTAs an SM;
  3. kernels: each kernel against its plain PyTorch version at the main
     paths' shapes, with kernel and plain times (CUDA events, medians), the
     kernel's device time (torch.profiler) and the least time the card could
     take (bound; for skinning and the deform read both for the split-TF32
     tensor-core work and, as the CUDA-core kernels were, for f32);
     skinning at N = 64, 512, 1024 and 4096 (the CLI, the train steps,
-    batch 16 and batch 64 x 64 slots), forward and backward, each timed
+    batch 16 and batch 64 x 64 slots), forward and backward (the backward
+    also twice on the same inputs, bitwise equal), each timed
     through its custom op (`ms`) and through the bare ctypes launch
     (`direct_ms`); the chain at batch 1, 2 and 64 for each branch shape, beside
     the unfused mixed branch it replaces (`unfused_ms`); and a check that
@@ -43,23 +45,23 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     (act_dtype bfloat16): ROMP and BEV at batch 16, unfused and fused, and
     TRACE on three clips. Then training at full width (HRNet-W32,
     512x512, batch 64 x 8 GT persons, the config's defaults: mixed path,
-    remat "stage", AdamW): `Trainer.fit` for 8 steps on device-made
-    batches, `launch.main` for 3 steps over a seeded 16-image pack, and
-    ResNet-50 for 3 steps. Then TRACE's training at the recipe
+    remat "stage", AdamW): `Trainer.fit` for 4 steps on device-made
+    batches, `launch.main` for 2 steps over a seeded 16-image pack, and
+    ResNet-50 for 2 steps. Then TRACE's training at the recipe
     (configs/trace.yml: 6 clips x 10 frames, 16 tracks, f32): `launch.main`
-    for 2 steps over a seeded video pack (the frozen backbone from the
+    for 1 step over a seeded video pack (the frozen backbone from the
     smoke ROMP weights, RAFT's flow from the smoke RAFT weights), and
-    `trace_train_step` for 8 steps on device-made batches. Then BEV's
+    `trace_train_step` for 4 steps on device-made batches. Then BEV's
     training at the v6 recipe (configs/v6_bev.yml: HRNet-W32 at 512x512,
     128x128x64 maps, SMPL+A, 16 GT persons, bf16 compute, lr 5e-5, no
     remat): the largest power-of-two batch up to 64 that fits, then
-    `bev_train_step` for 8 steps on device-made batches (skinning
+    `bev_train_step` for 4 steps on device-made batches (skinning
     forward and backward twice a step); 2D-pose pretraining at its recipe
     (configs/pretrain.yml: batch up to 64 x 16 persons, 54 joints, bf16
-    compute) for 8 steps and `pretrain.main` for 3 steps over a seeded
+    compute) for 4 steps and `pretrain.main` for 2 steps over a seeded
     16-image 2D pack; ROMP's training with bf16 activations (the
-    defaults plus train.act_dtype=bfloat16) for 8 steps and through
-    `launch.main` for 3. Each path's kernel launch counters are zeroed
+    defaults plus train.act_dtype=bfloat16) for 4 steps and through
+    `launch.main` for 2. Each path's kernel launch counters are zeroed
     just before it and read just after;
  5. card vs CPU: the same weights and inputs through the port on the CPU
     (plain versions) and on the card (kernels), f32 with TF32 off (ROMP,
@@ -88,22 +90,22 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     profiler (device-busy ms and kernels a clip); BEV img/s at batch 16 and
     batch-1 latency, unfused and fused; ROMP img/s at batch 64 with bf16
     activations, unfused and fused; training at the defaults: s a step,
-    steps/s and img/s, peak memory, device busy / idle over 2 profiled
-    steps beside one forward, and the host syncs of one step; TRACE's
+    steps/s and img/s, peak memory, device busy / idle over a profiled
+    step beside one forward, and the host syncs of one step; TRACE's
     train step at the recipe: s a step, clips/s and frames/s, peak memory,
     device busy / idle and kernels over a profiled step, the deform
     forward + backward's share, and one clip's peak; and over one clip's
     step, the share of the deform backward's dx contributions that took
     global atomics; BEV's training, pretraining and ROMP's bf16-activation
-    training: s a step (the median of steps 3-8), img/s, peak memory,
-    device busy / idle over 2 profiled steps (and BEV's skinning forward
+    training: s a step (the median of steps 3-4), img/s, peak memory,
+    device busy / idle over a profiled step (and BEV's skinning forward
     and backward launches and device ms);
  eval: the evaluation metrics on the card (f32) against the same
     functions in f64 on the CPU, and the 3DPW GT SMPL forward
     (`make_gt_smpl_fn`, the skinning kernel) against the CPU's, both to
     1e-5 of max|ref|; then the ROMP accuracy loop at full width
     (`eval.convergence.main`: HRNet-W32 at 512x512 on synthetic scenes,
-    batch 8, 16 steps through the Trainer, a checkpoint every 8, each
+    batch 8, 4 steps through the Trainer, a checkpoint every 2, each
     restored and scored through `RompPipeline` by the 3DPW collector and
     `pw3d_evaluate` on 12 held-out scenes, then the mixed and
     bf16-activation paths, unfused and fused, against f32 on the last
@@ -115,9 +117,8 @@ Phases, one line each; any failure raises and the exit code is nonzero:
  pnp: `lm_pnp` 6-DoF and 4-DoF at B = 512 on 24 SMPL joints, and
     `monte_carlo_pnp` (128 samples, 4 iterations) fed the same draws on
     both sides, the card against the CPU in f32, with both wall times;
- export: `export_romp` (HRNet-W32, 512x512) at batch 1 and 8 and
-    `export_bev` at batch 1 on the card, saved under build/, loaded and
-    run: each loaded
+ export: `export_romp` (HRNet-W32, 512x512) and `export_bev` at batch
+    1 on the card, saved under build/, loaded and run: each loaded
     program against eager inference on the same weights, the skinning
     kernel's launches from inside the loaded program (the custom op), the
     export and load seconds, the loaded program's and eager ms.
@@ -127,6 +128,7 @@ result line.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import gc
 import json
@@ -183,7 +185,7 @@ from romp_tpu_torch.ops import pnp as tpnp  # noqa: E402
 from romp_tpu_torch.ops.rotations import axis_angle_to_matrix  # noqa: E402
 from romp_tpu_torch.ops.lbs import (  # noqa: E402
     _skinning_bwd_cuda, _skinning_cuda, skinning, skinning_backward,
-    skinning_bwd_plain, skinning_plain, skinning_plan,
+    skinning_bwd_plain, skinning_bwd_plan, skinning_plain, skinning_plan,
 )
 from romp_tpu_torch.pipeline.bev_pipeline import (  # noqa: E402
     BevConfig, BevPipeline,
@@ -237,16 +239,19 @@ CHAIN_BATCHES = (1, 2, 64)   # batch-1 latency, PR 1's rows, offline batch
 # 8 GT persons, BEV's 32 x 16 per SMPL+A model)
 SKIN_N = (64, 512, 1024, 4096)
 SKIN_BWD_N = (64, 512, 1024, 4096)   # training: 64 x 8 GT persons = 512
-TRAIN_BATCH, TRAIN_PERSONS, TRAIN_STEPS = 64, 8, 8   # the config's defaults
+TRAIN_BATCH, TRAIN_PERSONS = 64, 8   # the config's defaults
+# steps of each device-made training run (the median of steps 3-4 is its
+# time) and of each launcher run; cut to keep the whole run well inside
+# its time limit
+TRAIN_STEPS, LAUNCH_STEPS = 4, 2
 V = 6890
 DEFORM = dict(B=8, C=32, H=128, W=128, G=8, Cout=32)   # TRACE's warp
 TRACE_CLIP = 8
 # configs/trace.yml: clips a step, frames a clip, supervised tracks
 TRACE_TRAIN_CLIPS, TRACE_TRAIN_T, TRACE_TRAIN_N = 6, 10, 16
-TRACE_TRAIN_STEPS = 8
-# launch.main's TRACE steps (each runs RAFT and the backbone per clip); 2
-# keeps the whole run inside its time limit
-TRACE_LAUNCH_STEPS = 2
+TRACE_TRAIN_STEPS = TRAIN_STEPS
+# launch.main's TRACE steps (each runs RAFT and the backbone per clip)
+TRACE_LAUNCH_STEPS = 1
 # H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
@@ -359,6 +364,16 @@ def launch_counts():
             "deform_conv_bwd": deform_conv2d_backward.launches}
 
 
+def skinning_bwd_occupancy():
+    """CTAs of the skinning backward's segment kernel that fit one SM at
+    once (the CUDA occupancy calculator): two, as its plan assumes."""
+    ctas = ctypes.c_int(0)
+    _build.check(_build.load().romp_skinning_bwd_occupancy(ctypes.byref(ctas)),
+                 "romp_skinning_bwd_occupancy")
+    check(ctas.value >= 2, f"skinning backward: {ctas.value} CTA an SM")
+    return ctas.value
+
+
 def smi_line():
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -414,17 +429,22 @@ def phase_kernels(dev):
 def skin_bwd_row(dev, g, n):
     """The skinning backward kernel (dA16, dv) against
     `skinning_bwd_plain` at n persons, V = 6890: bar 1e-4 of max|ref|,
-    the forward's."""
+    the forward's; rows 12-15 of dA16 zero; a second launch on the same
+    inputs bitwise equal (no float atomics, partials summed in order)."""
     a16 = torch.randn(n, 16, 24, generator=g).to(dev)
     w = torch.rand(V, 24, generator=g).to(dev)
     w /= w.sum(1, keepdim=True)
     vpos = torch.randn(n, 3, V, generator=g).to(dev)
     cot = torch.randn(n, 3, V, generator=g).to(dev)
     da, dv = skinning_backward(a16, w, vpos, cot)
+    da2, dv2 = skinning_backward(a16, w, vpos, cot)
     ra, rv = skinning_bwd_plain(a16, w, vpos, cot)
     torch.cuda.synchronize()
     err = max(rel_err(da, ra), rel_err(dv, rv))
     check(err <= 1e-4, f"skinning backward N={n}: rel err {err}")
+    check(not da[:, 12:].any(), f"skinning backward N={n}: rows 12-15")
+    check(torch.equal(da, da2) and torch.equal(dv, dv2),
+          f"skinning backward N={n}: two launches differ")
     # g and v_posed read and dv written once (the dominant bytes), a16 and W
     # read, dA16 written; the products of T16's 16 rows and dA16's 12 rows
     # with W (24 joints), split TF32, and per (person, vertex) dv's 3 x 3
@@ -432,15 +452,18 @@ def skin_bwd_row(dev, g, n):
     bounds = split_tf32_bounds(
         4 * (3 * n * 3 * V + n * 16 * 24 * 2 + V * 24),
         n * V * 2 * (16 + 12) * 24, n * V * (18 + 12))
+    plan = skinning_bwd_plan(n, V)
+    kernels = {"skinning_bwd_segment_kernel": 1}
+    if plan.segments > 1:
+        kernels["skinning_bwd_sum_kernel"] = 1
     return dict(
-        shape=f"N={n},V={V}", plan=skinning_plan(n, V)._asdict(),
+        shape=f"N={n},V={V}", plan=plan._asdict(),
         max_abs_err=float(max((da - ra).abs().max(), (dv - rv).abs().max())),
-        rel_err=err,
+        rel_err=err, bitwise_repeat=True,
         ms=time_ms(lambda: skinning_backward(a16, w, vpos, cot)),
         direct_ms=time_ms(lambda: _skinning_bwd_cuda(a16, w, vpos, cot)),
         device_ms=device_ms(lambda: skinning_backward(a16, w, vpos, cot),
-                            {"skinning_bwd_tf32_kernel": 1,
-                             "skinning_bwd_reduce_kernel": 1}),
+                            kernels),
         plain_ms=time_ms(lambda: skinning_bwd_plain(a16, w, vpos, cot)),
         **bounds)
 
@@ -516,7 +539,8 @@ def chain_row(dev, g, B, C, H, blocks=4):
 
 
 TENSOR_CORE_KERNELS = ("conv3x3_bn_act_mma_kernel", "skinning_tf32_kernel",
-                       "skinning_bwd_tf32_kernel", "deform_conv_tf32_kernel",
+                       "skinning_bwd_segment_kernel",
+                       "deform_conv_tf32_kernel",
                        "deform_conv_bf16_kernel", "deform_bwd_tf32_kernel")
 
 
@@ -1571,7 +1595,8 @@ def phase_trace_time(dev, ckpt, raft_ckpt, smi):
         if raft:
             frames = pipe.prefetch(np.concatenate(
                 [clips[0][:1], clips[0]]))
-            prof, _ = device_profile(lambda: pipe.flow_fn(frames), 3, 1)
+            prof, _ = device_profile(lambda: pipe.flow_fn(frames), 3, 1,
+                                     table=False)
             row["raft_profile_per_clip"] = prof
         rows.append(row)
     for row in rows:
@@ -1661,12 +1686,12 @@ def write_train_pack(root, n=16, size=512):
 
 def phase_train(dev):
     """Training at full width (HRNet-W32, 512x512, batch 64 x 8 GT persons,
-    the config's defaults): Trainer.fit over 8 device-made synthetic batches
+    the config's defaults): Trainer.fit over TRAIN_STEPS device-made batches
     (each step finite, grads_finite 1, the loss moving, skinning's forward
     and backward kernels launched); then the launcher, `launch.main`, over
     a seeded pack of 16 cv2 images (data loading and augmentation
-    included) for 3 steps; then ResNet-50 for 3 steps. Counters zeroed
-    before each and read after it. Returns the launches per path."""
+    included) for LAUNCH_STEPS steps; then ResNet-50 for as many. Counters
+    zeroed before each and read after it. Returns the launches per path."""
     smpl = SmplModel(synthetic_assets(seed=0), dev)
     by_path, out = {}, {}
     cfg = train_config(_build.BUILD_DIR / "smoke_train")
@@ -1702,17 +1727,18 @@ def phase_train(dev):
     reset_counts()
     t0 = time.perf_counter()
     check(train_launch.main(
-        ["--data_root", str(root / "data"), "--max_steps", "3", "--GPU",
+        ["--data_root", str(root / "data"), "--max_steps",
+         str(LAUNCH_STEPS), "--GPU",
          str(dev.index or 0), "data.datasets=smoke",
          f"train.checkpoint_dir={ck}", "train.test_interval=0",
          "train.log_every=1"]) == 0, "launch.main")
     torch.cuda.synchronize()
     by_path["train_launch"] = launch_counts()
     logged = [json.loads(line) for line in log.read_text().splitlines()]
-    check([r["step"] for r in logged] == [1, 2, 3]
+    check([r["step"] for r in logged] == list(range(1, LAUNCH_STEPS + 1))
           and all(r["grads_finite"] == 1.0 and np.isfinite(r["total"])
                   for r in logged), f"launch.main log {logged}")
-    check(by_path["train_launch"]["skinning_bwd"] == 3,
+    check(by_path["train_launch"]["skinning_bwd"] == LAUNCH_STEPS,
           f"launch.main launches {by_path['train_launch']}")
     out["launch"] = dict(seconds=time.perf_counter() - t0, log=logged[-1],
                          launches=by_path["train_launch"])
@@ -1723,10 +1749,11 @@ def phase_train(dev):
     reset_counts()
     t0 = time.perf_counter()
     rows = recorded_fit(trainer, (tts.make_synthetic_batch(
-        50 + i, TRAIN_BATCH, TRAIN_PERSONS, 512, dev) for i in range(3)), 3)
+        50 + i, TRAIN_BATCH, TRAIN_PERSONS, 512, dev)
+        for i in range(LAUNCH_STEPS)), LAUNCH_STEPS)
     by_path["train_resnet50"] = launch_counts()
     check_train_steps(rows, "ResNet-50")
-    check(by_path["train_resnet50"]["skinning_bwd"] == 3,
+    check(by_path["train_resnet50"]["skinning_bwd"] == LAUNCH_STEPS,
           f"ResNet-50 launches {by_path['train_resnet50']}")
     out["resnet50"] = dict(seconds=time.perf_counter() - t0,
                            total=[r["total"] for r in rows],
@@ -1830,10 +1857,10 @@ def phase_train_card_vs_cpu(dev):
 
 def phase_train_time(dev, smi):
     """Training at the defaults (HRNet-W32 512x512, batch 64 x 8, mixed,
-    remat "stage"): seconds a step over 8 steps on device-made batches (host
-    clock, each ended by a device barrier; the median of steps 3-8), steps/s
-    and images/s, peak device memory; device busy / idle share over 2
-    profiled steps, beside one inference forward of the same net at batch
+    remat "stage"): seconds a step over TRAIN_STEPS device-made batches (host
+    clock, each ended by a device barrier; the median of steps 3-4), steps/s
+    and images/s, peak device memory; device busy / idle share over a
+    profiled step, beside one inference forward of the same net at batch
     64 (mixed, eval mode) for the step-to-forward ratio; one step under
     torch.cuda.set_sync_debug_mode("warn"), its host syncs recorded."""
     import warnings
@@ -1854,11 +1881,13 @@ def phase_train_time(dev, smi):
         times.append(time.perf_counter() - t0)
     sec = statistics.median(times[2:])
     peak = torch.cuda.max_memory_allocated(dev)
-    prof, _ = device_profile(lambda: trainer.step(batches[0]), 2, 1)
+    prof, _ = device_profile(lambda: trainer.step(batches[0]), 1, 1,
+                             table=False)
     net = trainer.state.net.eval()
     with torch.no_grad(), precision_flags(RompConfig(
             compute_dtype="bfloat16")):
-        fwd, _ = device_profile(lambda: net(batches[0]["image"], MIXED), 3, 1)
+        fwd, _ = device_profile(lambda: net(batches[0]["image"], MIXED), 3, 1,
+                                table=False)
     trainer.state.net.train()
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
@@ -2061,7 +2090,7 @@ def phase_trace_train_time(dev, ctx, smi):
     maps, f32, each clip recomputed in the backward): seconds a step over
     the TRACE_TRAIN_STEPS
     steps of phase 4 (host clock, each ended by a device barrier; the
-    median of steps 3-8), clips/s and frames/s, peak device memory; one
+    median of steps 3-4), clips/s and frames/s, peak device memory; one
     profiled step: device busy / idle share, kernels a step, busy ms by
     kind and the deform forward + backward's share of the busy time; and
     the peak of one clip's step (its activations, all held during its
@@ -2070,7 +2099,7 @@ def phase_trace_train_time(dev, ctx, smi):
                                                  "times"))
     sec = statistics.median(times[2:])
     prof, _ = device_profile(lambda: ttts.trace_train_step(state, batch, cfg),
-                             1, 0)
+                             1, 0, table=False)
     kinds = prof["busy_ms_per_call_by_kind"]
     deform_ms = (kinds.get("deform kernel", 0.0)
                  + kinds.get("deform backward kernel", 0.0))
@@ -2128,7 +2157,7 @@ def deform_bwd_global_shares(net, step, dev):
 # configs/v6_bev.yml and configs/pretrain.yml: batch, GT persons an image
 BEV_TRAIN_BATCH, BEV_TRAIN_PERSONS = 64, 16
 PRETRAIN_BATCH, PRETRAIN_PERSONS = 64, 16
-NEW_TRAIN_STEPS = 8
+NEW_TRAIN_STEPS = TRAIN_STEPS
 
 
 def largest_fitting_batch(step, batch):
@@ -2156,7 +2185,7 @@ def largest_fitting_batch(step, batch):
 
 def timed_steps(step, batches, dev):
     """step(b) for each batch, each ended by a device barrier: the seconds
-    of each (host clock), the median of steps 3-8, and the peak device
+    of each (host clock), the median of steps 3-4, and the peak device
     memory over the run."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -2189,8 +2218,8 @@ def phase_bev_train(dev, smi):
     `bev_train_step` for NEW_TRAIN_STEPS steps on device-made batches
     (each finite, the loss moving, skinning's forward and backward kernels
     launched twice a step: the adult and the infant model), its seconds a
-    step (the median of steps 3-8), img/s and peak memory, and two
-    profiled steps: the device busy / idle share and the skinning kernels'
+    step (the median of steps 3-4), img/s and peak memory, and a
+    profiled step: the device busy / idle share and the skinning kernels'
     device ms. Counters zeroed before the timed steps, read after them."""
     cfg = load_config("configs/v6_bev.yml")
     check((cfg.train.batch_size, cfg.model.input_size,
@@ -2229,7 +2258,7 @@ def phase_bev_train(dev, smi):
           f"bev_train_step launches {n}")
     phase(4, "slice", path="bev-train", batch=batch, refused=refused,
           total=totals, launches=n)
-    prof, _ = device_profile(lambda: step(batches[0]), 2, 0)
+    prof, _ = device_profile(lambda: step(batches[0]), 1, 0, table=False)
     row = dict(path="bev-train", backbone="hrnet32", batch=batch,
                recipe_batch=BEV_TRAIN_BATCH, batches_refused=refused,
                persons=BEV_TRAIN_PERSONS, compute_dtype="bfloat16",
@@ -2330,10 +2359,10 @@ def phase_pretrain(dev, smi):
     as JAX's step): the largest power-of-two batch up to 64 that fits,
     then `pretrain_step` for NEW_TRAIN_STEPS steps on device-made batches
     (each finite with grads_finite 1, the loss moving): seconds a step,
-    img/s, peak memory and two profiled steps; then `pretrain.main` for 3
-    steps over a seeded 16-image 2D pack at that batch (its log and
-    checkpoint). Pretraining runs none of the port's kernels (no SMPL; the
-    chain kernel is off in train mode): its counts are recorded."""
+    img/s, peak memory and a profiled step; then `pretrain.main` for
+    LAUNCH_STEPS steps over a seeded 16-image 2D pack at that batch (its
+    log and checkpoint). Pretraining runs none of the port's kernels (no
+    SMPL; the chain kernel is off in train mode): its counts are recorded."""
     cfg = load_config("configs/pretrain.yml")
     check((cfg.train.batch_size, cfg.model.input_size, cfg.model.backbone,
            cfg.train.compute_dtype, cfg.model.max_person) == (
@@ -2361,7 +2390,7 @@ def phase_pretrain(dev, smi):
     by_path = {"pretrain": launch_counts()}
     rows = [{k: float(v) for k, v in r.items()} for r in rows]
     check_train_steps(rows, "pretrain_step")
-    prof, _ = device_profile(lambda: step(batches[0]), 2, 0)
+    prof, _ = device_profile(lambda: step(batches[0]), 1, 0, table=False)
     del state, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -2374,7 +2403,8 @@ def phase_pretrain(dev, smi):
     reset_counts()
     t0 = time.perf_counter()
     check(tpre.main(["--config", "configs/pretrain.yml", "--data_root",
-                     str(root / "data"), "--max_steps", "3", "--GPU",
+                     str(root / "data"), "--max_steps",
+                     str(LAUNCH_STEPS), "--GPU",
                      str(dev.index or 0), "data.datasets=smoke2d",
                      f"train.batch_size={batch}",
                      f"train.checkpoint_dir={ck}",
@@ -2382,7 +2412,7 @@ def phase_pretrain(dev, smi):
     torch.cuda.synchronize()
     by_path["pretrain_launch"] = launch_counts()
     logged = [json.loads(line) for line in log.read_text().splitlines()]
-    check([r["step"] for r in logged] == [1, 2, 3]
+    check([r["step"] for r in logged] == list(range(1, LAUNCH_STEPS + 1))
           and all(r["grads_finite"] == 1.0 and np.isfinite(r["total"])
                   for r in logged), f"pretrain.main log {logged}")
     check((ck / "pretrain_last.npz").exists(), "pretrain_last.npz")
@@ -2404,10 +2434,10 @@ def phase_train_bf16_act(dev, smi):
     batch 64 x 8, mixed compute, remat "stage", with train.act_dtype
     bfloat16): Trainer.step over NEW_TRAIN_STEPS device-made batches (each
     finite, grads_finite 1, skinning's kernels launched once forward and
-    once backward a step), seconds a step, img/s, peak memory and two
-    profiled steps, beside the mixed step's (phase 6's "train" row); then
-    `launch.main` for 3 steps with train.act_dtype=bfloat16 over the
-    seeded 16-image pack of the train phase."""
+    once backward a step), seconds a step, img/s, peak memory and a
+    profiled step, beside the mixed step's (phase 6's "train" row); then
+    `launch.main` for LAUNCH_STEPS steps with train.act_dtype=bfloat16
+    over the seeded 16-image pack of the train phase."""
     smpl = SmplModel(synthetic_assets(seed=0), dev)
     trainer = Trainer(train_config(_build.BUILD_DIR / "smoke_train_bf16",
                                    "train.tensorboard=false",
@@ -2428,7 +2458,8 @@ def phase_train_bf16_act(dev, smi):
     check(n["skinning"] == NEW_TRAIN_STEPS
           and n["skinning_bwd"] == NEW_TRAIN_STEPS,
           f"bf16-act train launches {n}")
-    prof, _ = device_profile(lambda: trainer.step(batches[0]), 2, 0)
+    prof, _ = device_profile(lambda: trainer.step(batches[0]), 1, 0,
+                             table=False)
     del trainer, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -2442,7 +2473,8 @@ def phase_train_bf16_act(dev, smi):
     reset_counts()
     t0 = time.perf_counter()
     check(train_launch.main(
-        ["--data_root", str(root / "data"), "--max_steps", "3", "--GPU",
+        ["--data_root", str(root / "data"), "--max_steps",
+         str(LAUNCH_STEPS), "--GPU",
          str(dev.index or 0), "data.datasets=smoke",
          f"train.checkpoint_dir={ck}", "train.test_interval=0",
          "train.log_every=1", "train.act_dtype=bfloat16"]) == 0,
@@ -2450,10 +2482,10 @@ def phase_train_bf16_act(dev, smi):
     torch.cuda.synchronize()
     by_path["train_launch_bf16_act"] = launch_counts()
     logged = [json.loads(line) for line in log.read_text().splitlines()]
-    check([r["step"] for r in logged] == [1, 2, 3]
+    check([r["step"] for r in logged] == list(range(1, LAUNCH_STEPS + 1))
           and all(r["grads_finite"] == 1.0 and np.isfinite(r["total"])
                   for r in logged), f"launch.main bf16-act log {logged}")
-    check(by_path["train_launch_bf16_act"]["skinning_bwd"] == 3,
+    check(by_path["train_launch_bf16_act"]["skinning_bwd"] == LAUNCH_STEPS,
           f"launch.main bf16-act launches {by_path}")
     phase(4, "slice", path="train-bf16-act",
           total=[r["total"] for r in rows], launches=n,
@@ -2471,7 +2503,7 @@ def phase_train_bf16_act(dev, smi):
 # the accuracy loop's check at full width: HRNet-W32 at 512x512 on
 # synthetic scenes, batch 8, EVAL_STEPS steps, a checkpoint every
 # EVAL_INTERVAL, EVAL_TRAIN / EVAL_HELD_OUT scenes
-EVAL_STEPS, EVAL_INTERVAL, EVAL_TRAIN, EVAL_HELD_OUT = 16, 8, 16, 12
+EVAL_STEPS, EVAL_INTERVAL, EVAL_TRAIN, EVAL_HELD_OUT = 4, 2, 16, 12
 
 
 def phase_eval(dev, smi):
@@ -2717,10 +2749,10 @@ def phase_pnp(dev, smi):
 
 def phase_export(dev, params, bev_params, smi):
     """The export tool on the card: `export_romp` (HRNet-W32 512x512) and
-    `export_bev` (512x512) at batch 1, and ROMP at batch 8 too (BEV's
-    batch 8 is left out to keep the whole run inside its time limit),
-    saved under build/ from checkpoint files of the seeded weights, loaded
-    (`load_exported`) and run. Each loaded program's outputs against eager `romp_inference` /
+    `export_bev` (512x512) at batch 1 (batch 8 is left out to keep the
+    whole run well inside its time limit), saved under build/ from
+    checkpoint files of the seeded weights, loaded (`load_exported`) and
+    run. Each loaded program's outputs against eager `romp_inference` /
     `bev_inference` through the pipeline on the same weights (bar 1e-5 of
     each output's max|ref|, the validity masks equal): the same cuDNN
     convs and kernels in the same order. `skinning.launches` must grow
@@ -2743,7 +2775,7 @@ def phase_export(dev, params, bev_params, smi):
                            BevConfig(max_person=8), dev)}
     exporters = {"romp": texp.export_romp, "bev": texp.export_bev}
     rows, launches = [], dict.fromkeys(KERNELS, 0)
-    for model, batches in (("romp", (1, 8)), ("bev", (1,))):
+    for model, batches in (("romp", (1,)), ("bev", (1,))):
         for batch in batches:
             path = out_dir / f"{model}_b{batch}.pt2"
             t0 = time.perf_counter()
@@ -2808,6 +2840,8 @@ def main():
                             _build.kernel_resources("skinning")},
           skinning_smem_bytes={f"N={n}": skinning_plan(n, V).smem
                                for n in SKIN_N},
+          skinning_bwd_smem_bytes=skinning_bwd_plan(SKIN_BWD_N[0], V).smem,
+          skinning_bwd_ctas_per_sm=skinning_bwd_occupancy(),
           deform_kernels={demangled(r.pop("kernel")): r for r in
                           _build.kernel_resources("deform")},
           deform_smem_bytes=deform_smem(DEFORM["G"],

@@ -1,5 +1,5 @@
-// Linear-blend skinning, forward, f32 result, on Hopper's tensor cores
-// (sm_90a).
+// Linear-blend skinning, forward and backward, f32 results, on Hopper's
+// tensor cores (sm_90a).
 //
 // Replaces romp_tpu/ops/pallas_lbs.py::skinning_pallas (_skinning_kernel):
 //   T16[b] = A16[b] . W^T                          (16 x V per person)
@@ -46,34 +46,60 @@
 //   (warps per CTA, persons per CTA) comes from ops/lbs.py
 //   `skinning_plan`: the card is full at N = 64 (the CLI) and at 4096.
 //
-// The backward (skinning_bwd_tf32_kernel + skinning_bwd_reduce_kernel)
+// The backward (skinning_bwd_segment_kernel + skinning_bwd_sum_kernel)
 // replaces romp_tpu/ops/pallas_lbs.py::_fused_skinning_bwd (XLA in JAX):
 // for the cotangent g (N, 3, V),
 //   dv[b, n, v] = sum_m T16[b, 4m+n, v] * g[b, m, v]            (n < 3)
 //   dA16[b, 4m+n, j] = sum_v g[b, m, v] * vh[b, n, v] * W[v, j]  (vh = [vpos; 1])
 // with rows 12-15 of dA16 zero. What bounds it: at N = 4096 it reads g and
-// v_posed and writes dv, 3 x 339 MB, 0.30 ms at 3.35 TB/s; its products
-// (T16's 16 rows and dA16's 12, (16 + 12) x 24 x 2 x V x N = 38 GFLOP)
-// three times over at 495 TFLOP/s take 0.23 ms, so bytes bind (chip_smoke.py
-// phase 3 reads both). Design: the forward's grid, launch plan, cp.async
-// ring (now carrying g's rows beside v_posed's) and split A16 fragments;
-// - dv: the forward's MMAs give a thread rows 4m+r of T16 (r = 0, 1 on
-//   even lanes, 2, 3 on odd ones) for its vertices; it sums them against
-//   g's three rows and stores dv rows 0 and 1 (even lanes) or row 2 (odd
-//   lanes). T16 stays in registers.
-// - dA16: per m group, a m16n8k8 product over the warp's 32 vertices with
-//   M = 16 rows (4 persons of the chunk x n = 0..3), A = g[m] * vh[n]
-//   formed from shared memory and split in registers, B = W (vertex x
-//   joint, 3 n tiles), split once per CTA in registers; three products.
-//   The warps' sums meet in shared memory and are added in a fixed order,
-//   one partial per vertex tile and person goes to device memory, and a
-//   second small kernel adds the tiles' partials in order: no float
-//   atomics, so the result does not depend on the schedule.
-// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3): 1.26 ms
-// of device time at N = 4096, 4.1x the bytes bound, 0.19 ms at the train
-// step's N = 512. A simple first design: 198 registers leave one CTA of 8
-// warps an SM, and each chunk of 4 persons meets in shared memory for
-// its dA16 sum, so latency is poorly hidden (PERF.md).
+// v_posed and writes dv, 3 x 339 MB, 0.307 ms at 3.35 TB/s; its products
+// (T16's 16 rows and dA16's 12, 38 GFLOP) three times over at 495 TFLOP/s
+// take 0.23 ms, so bytes bind on paper (chip_smoke.py phase 3 reads both).
+// But mma.sync reaches about half that TF32 rate: the 216 MMAs a warp
+// issues for 4 persons x 32 vertices hold the tensor cores about 0.3 ms at
+// N = 4096 (a build without them is that much faster).
+// Design:
+// - A CTA of 8 warps owns 16 persons (4 quads) and one segment of V, and
+//   streams it in stages of 64 vertices through a 2-stage cp.async ring of
+//   the persons' v_posed and g rows, XOR-swizzled by row so that the reads
+//   below hit 32 banks. A quad's two warps take a stage's two 32-vertex
+//   halves. The copies are 16-byte where a row starts 16-byte aligned
+//   (every other row at V = 6890), else 8- or 4-byte: a TMA tensor map or
+//   cp.async.bulk wants 16-byte row strides, which (N, 3, 6890) f32 lacks.
+// - W's 64 x 24 tile of a stage is fetched into registers one stage ahead
+//   by 192 threads and split once per CTA into shared memory, in both
+//   fragment layouts (T16's A, dA16's B), hi and lo; no W is held in
+//   registers.
+// - dv: T16 of a person pair at the warp's 32 vertices by the forward's
+//   m16n8k8 products (W as A; A16, split once per CTA into shared memory,
+//   as B), summed against g's rows in registers and stored.
+// - dA16: per m group, M = 16 rows (the quad's 4 persons x n) over the
+//   warp's vertices, A = g[m] * vh[n] formed and split in registers, B = W;
+//   the 36 sums stay in registers over the whole segment. At its end a
+//   quad's two warps meet once in shared memory, in a fixed order, and the
+//   first stores dA16 (one segment) or the segment's partial, which a small
+//   kernel adds over the segments in order: no float atomics, so the
+//   result does not depend on the schedule.
+// - ops/lbs.py `skinning_bwd_plan` cuts V into segments only as far as two
+//   CTAs on each of 132 SMs ask: one at N = 4096 (no partials), 8 at 512.
+// - 124 registers, no spills, 110,592 bytes of shared memory: two CTAs an
+//   SM. TF32 rounding by two integer instructions (tf32_rna): the
+//   compiler's cvt.rna.tf32.f32 sequence took 5% of the time.
+// - Split TF32 on mma.sync, not wgmma: a wgmma version (m64n24k8; T16 with
+//   both operands and dA16 with B from shared memory) gave the same
+//   results 1.3x slower, its accumulators each a chain of dependent
+//   products behind warpgroup-wide waits. Other variants measured slower
+//   too: T16 of 8 persons a warp without the translation rows (a quarter
+//   fewer T16 MMAs, but spills or rolled loops), both pairs' T16 at once
+//   (spills), L2 prefetch of the rows two stages ahead, and half the
+//   warps running the dA16 part first.
+// Measured on an H100 80GB HBM3 at 700 W (utils/kernel_breakdown.py, in one
+// call beside the previous design): 0.890-0.896 ms of device time at
+// N = 4096 (before: 1.223-1.233), 34% of the bytes bound; 0.130-0.131 ms at
+// the train step's N = 512 (0.172), 30%. The MMAs, the copies and the
+// operand work still add up more than they overlap: 16 warps an SM at 124
+// registers leave no room to pipeline a warp's loads under its MMAs
+// (PERF.md).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -338,271 +364,432 @@ skinning_tf32_kernel(const float* __restrict__ a16, const float* __restrict__ w,
 
 // ---------------------------------------------------------------- backward
 
-constexpr int kBwdStages = 3;          // ring depth of the backward
-constexpr int kDaFloats = kChunk * 12 * kJ;   // a chunk's dA16 rows 0-11
-
-__host__ __device__ constexpr int bwd_stage_floats(int vt) {
-  return kChunk * kARow + 2 * kChunk * 3 * (vt + 8);   // A16, vpos, g
+constexpr int kBwdQuads = 4;                   // warp pairs, 4 persons each
+constexpr int kBwdWarps = 2 * kBwdQuads;       // a quad's two vertex halves
+constexpr int kBwdPersons = 4 * kBwdQuads;     // persons per CTA
+constexpr int kSub = 2 * kWarpVerts;           // vertices per ring stage
+constexpr int kBwdRows = 2 * kBwdPersons * 3;  // v_posed rows, then g rows
+constexpr int kBwdStage = kBwdRows * kSub;     // floats of a ring stage
+constexpr int kBwdRing = 2;                    // ring stages
+// split fragments in shared memory, float4 each: A16 as the B operand of
+// T16 (quad, pair, m, k step, lane); W as the A operand of T16 (m16 tile,
+// k step, lane; hi and lo); W as the B operand of dA16 (8 vertices, n
+// tile, lane)
+constexpr int kA16Frag = kBwdQuads * 2 * 3 * 3 * 32;
+constexpr int kWaFrag = (kSub / 16) * 3 * 32 * 2;
+constexpr int kWbFrag = (kSub / 8) * 3 * 32;
+constexpr int kWCells = kSub * kJ / 8;         // W's 8-value split cells
+constexpr int kDaRegs = 3 * 3 * 4;             // a warp's dA16 accumulators
+// Measurement builds only (utils/kernel_breakdown.py): -DROMP_LBS_BWD_SKIP=
+// mask leaves out the MMAs (1), the g / v_posed copies (2), the dA16
+// meeting of a quad's two warps with the partial stores (4), the sum
+// kernel (8), the dv stores (16), the W split into shared memory (32),
+// the dv part (64: T16's operands, MMAs and the sums against g) or the
+// dA16 part (128: its operands and MMAs). The results are then wrong.
+#ifndef ROMP_LBS_BWD_SKIP
+#define ROMP_LBS_BWD_SKIP 0
+#endif
+constexpr int kBwdSkip = ROMP_LBS_BWD_SKIP;
+// cvt.rna.tf32.f32 in two integer instructions (sm_90 has no conversion
+// instruction for it: the compiler's sequence adds a test for infinities
+// to each); the same result for every input, infinities and NaNs kept
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-int bwd_smem_bytes(int warps) {
-  return 2 * kFrag * 16 + kBwdStages * bwd_stage_floats(warps * kWarpVerts) * 4 +
-         warps * kDaFloats * 4;
+// `split` with tf32_rna
+__device__ __forceinline__ void split_rna(float x, uint32_t& hi,
+                                          uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
 }
 
-__global__ void __launch_bounds__(kMaxWarps * 32, 1)
-skinning_bwd_tf32_kernel(const float* __restrict__ a16,
-                         const float* __restrict__ w,
-                         const float* __restrict__ vpos,
-                         const float* __restrict__ gin,
-                         float* __restrict__ dv_out,
-                         float* __restrict__ partial, int n, int v_count,
-                         int persons_per_cta) {
+constexpr int bwd_smem_bytes() {
+  return (kA16Frag + kWaFrag + kWbFrag) * 16 + kBwdRing * kBwdStage * 4;
+}
+
+// the float of (row, vertex) in a ring stage: 4-float groups XORed by the
+// row, so that a warp's reads of v_posed and g rows hit 32 banks
+__device__ __forceinline__ int at(int row, int v) {
+  return row * kSub + (v ^ ((row & 7) << 2));
+}
+
+// One row segment (kSub floats from src, of which n exist) -> dst, swizzled
+// as `at`, in copies of kV floats by the lanes of one warp; zero past n.
+template <int kV>
+__device__ __forceinline__ void copy_row_swz(float* dst, const float* src,
+                                             int n, int row, int lane) {
+  for (int e = lane * kV; e < kSub; e += 32 * kV) {
+    const int bytes = max(0, min(kV, n - e)) * 4;
+    cp_async<4 * kV>(smem_addr(dst + at(row, e)), src + (bytes ? e : 0),
+                     bytes);
+  }
+}
+
+__global__ void __launch_bounds__(kBwdWarps * 32, 2)
+skinning_bwd_segment_kernel(const float* __restrict__ a16,
+                            const float* __restrict__ w,
+                            const float* __restrict__ vpos,
+                            const float* __restrict__ gin,
+                            float* __restrict__ dv_out,
+                            float* __restrict__ da_out, int n, int v_count,
+                            int seg_verts) {
   extern __shared__ float4 smem4[];
-  const int warps = blockDim.x / 32;
-  const int vt = warps * kWarpVerts;
-  const int vrow = vt + 8;
-  const int sfl = bwd_stage_floats(vt);
-  float4* frag = smem4;      // [2][kFrag]
-  float* stages = reinterpret_cast<float*>(smem4 + 2 * kFrag);
-  float* red = stages + kBwdStages * sfl;   // [warps][kDaFloats]
-  const int v0 = blockIdx.x * vt;
-  const int p_begin = blockIdx.y * persons_per_cta;
-  const int p_end = min(n, p_begin + persons_per_cta);
-  const int nchunks = (p_end - p_begin + kChunk - 1) / kChunk;
+  float4* afrag = smem4;                  // [kA16Frag]
+  float4* wafrag = afrag + kA16Frag;      // [kWaFrag]
+  float4* wbfrag = wafrag + kWaFrag;      // [kWbFrag]
+  float* ring = reinterpret_cast<float*>(wbfrag + kWbFrag);
+  const int seg = blockIdx.x;
+  const int v_begin = seg * seg_verts;
+  const int v_end = min(v_count, v_begin + seg_verts);
+  const int nsub = (v_end - v_begin + kSub - 1) / kSub;
+  const int p0 = blockIdx.y * kBwdPersons;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int quad = warp >> 1;             // persons 4 quad .. 4 quad + 3
+  const int half = warp & 1;              // vertices 32 half .. + 31
   const int g = lane >> 2;
   const int t = lane & 3;
-  const int vw = warp * kWarpVerts;   // the warp's first vertex in the tile
 
-  // W as the A operand of the T16 recompute (the forward's fragments)
-  uint32_t whi[2][3][4], wlo[2][3][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-    for (int ks = 0; ks < 3; ++ks) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int v = v0 + vw + mt * 16 + g + (r & 1) * 8;
-        const int j = ks * 8 + t + (r >> 1) * 4;
-        const float x = v < v_count ? __ldg(w + (size_t)v * kJ + j) : 0.f;
-        split(x, whi[mt][ks][r], wlo[mt][ks][r]);
-      }
+  // A16 rows 0-11 of the CTA's persons, split, as the forward's B
+  // fragments: b0 (k = joint t, n = g), b1 (joint t + 4); column n = 4 *
+  // person-of-pair + row-in-m-group
+  for (int i = threadIdx.x; i < kA16Frag; i += blockDim.x) {
+    const int ln = i & 31;
+    const int ks = (i >> 5) % 3;
+    const int m = (i / 96) % 3;
+    const int pair = i / 288;             // quad * 2 + pair-in-quad
+    const int gg = ln >> 2;
+    const int p = p0 + 2 * pair + (gg >> 2);
+    float x0 = 0.f, x1 = 0.f;
+    if (p < n) {
+      const float* src = a16 + ((size_t)p * 16 + 4 * m + (gg & 3)) * kJ +
+                         ks * 8 + (ln & 3);
+      x0 = __ldg(src);
+      x1 = __ldg(src + 4);
     }
-  }
-  // W as the B operand of dA16: b0 (k = vertex t, n = joint g), b1 (k t+4)
-  uint32_t wbhi[4][3][2], wblo[4][3][2];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-#pragma unroll
-    for (int nt = 0; nt < 3; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int v = v0 + vw + ks * 8 + t + r * 4;
-        const float x =
-            v < v_count ? __ldg(w + (size_t)v * kJ + nt * 8 + g) : 0.f;
-        split(x, wbhi[ks][nt][r], wblo[ks][nt][r]);
-      }
-    }
+    uint32_t h0, l0, h1, l1;
+    split_rna(x0, h0, l0);
+    split_rna(x1, h1, l1);
+    afrag[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
+                           __uint_as_float(l0), __uint_as_float(l1));
   }
 
-  auto load_chunk = [&](int c) {
-    float* st = stages + (c % kBwdStages) * sfl;
-    const int pc = p_begin + c * kChunk;
-    for (int i = threadIdx.x; i < kChunk * kARow / 4; i += blockDim.x) {
-      const int q = i / (kARow / 4);
-      const int e = (i - q * (kARow / 4)) * 4;
-      const bool ok = pc + q < p_end;
-      cp_async<16>(smem_addr(st + q * kARow + e),
-                   ok ? a16 + (size_t)(pc + q) * kAStride + e : a16,
-                   ok ? 16 : 0);
+  // W of stage s, split into both fragment layouts by cells of 8 values,
+  // vertices v + {0, 4, 8, 12} x joints j + {0, 4} (v % 16 < 4, j % 8 <
+  // 4): a cell fills 4 float4 B fragments of dA16 and the hi and lo A
+  // fragments of T16 of 2 lanes, so every store is a float4 (8 lanes a
+  // store: 4 vertex offsets x 2 joint parities, at most 2-way conflicts).
+  // kWCells threads fetch a cell's values into registers one stage ahead.
+  const bool wcell = threadIdx.x < kWCells;
+  const int wc_t = threadIdx.x & 3;                 // v % 4
+  const int wc_j = 8 * ((threadIdx.x >> 4) % 3) + ((threadIdx.x >> 2) & 3);
+  const int wc_v = 16 * ((threadIdx.x >> 4) / 3) + wc_t;
+  float wreg[8];                                    // [v offset][joint +4]
+  auto fetch_w = [&](int s) {
+    if (!wcell) return;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int v = v_begin + s * kSub + wc_v + 4 * (e >> 1);
+      wreg[e] = v < v_end ? __ldg(w + (size_t)v * kJ + wc_j + 4 * (e & 1))
+                          : 0.f;
     }
-    // rows 0-11: v_posed (person, coordinate); rows 12-23: g
-    for (int row = warp; row < 2 * kChunk * 3; row += warps) {
-      const int pr = row % (kChunk * 3);
-      const int p = pc + pr / 3;
-      const int nv = p < p_end ? min(vt, v_count - v0) : 0;
-      const float* src = (row < kChunk * 3 ? vpos : gin) +
-                         ((size_t)min(p, n - 1) * 3 + pr % 3) * v_count + v0;
-      float* dst = st + kChunk * kARow + row * vrow;
+  };
+  auto put_w = [&]() {
+    if (!wcell || (kBwdSkip & 32)) return;
+    uint32_t hi[8], lo[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) split_rna(wreg[e], hi[e], lo[e]);
+    // dA16's B, (k8, n tile, lane 4 (j % 8) + v % 4): (b0 hi, b1 hi, b0
+    // lo, b1 lo) with b1 the vertex 4 on
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int v8 = (wc_v >> 3) + (e >> 1);        // e: (v + 8, j + 4)
+      const int jj = wc_j + 4 * (e & 1);
+      const int r = 4 * (e >> 1);                   // wreg: v, v + 4 at e
+      wbfrag[(v8 * 3 + (jj >> 3)) * 32 + (jj & 7) * 4 + wc_t] = make_float4(
+          __uint_as_float(hi[r + (e & 1)]), __uint_as_float(hi[r + 2 + (e & 1)]),
+          __uint_as_float(lo[r + (e & 1)]), __uint_as_float(lo[r + 2 + (e & 1)]));
+    }
+    // T16's A, (m16 tile, k step, lane 4 (v % 8) + j % 4): a0 (v, j), a1
+    // (v + 8, j), a2 (v, j + 4), a3 (v + 8, j + 4); the hi fragments,
+    // then the lo ones
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {                   // vertex v + 4 e
+      const int ia = ((wc_v >> 4) * 3 + (wc_j >> 3)) * 32 +
+                     ((wc_v + 4 * e) & 7) * 4 + (wc_j & 3);
+      const int r = 2 * e;
+      wafrag[ia] = make_float4(
+          __uint_as_float(hi[r]), __uint_as_float(hi[r + 4]),
+          __uint_as_float(hi[r + 1]), __uint_as_float(hi[r + 5]));
+      wafrag[kWaFrag / 2 + ia] = make_float4(
+          __uint_as_float(lo[r]), __uint_as_float(lo[r + 4]),
+          __uint_as_float(lo[r + 1]), __uint_as_float(lo[r + 5]));
+    }
+  };
+
+  // rows 0-47: v_posed (person, coordinate); rows 48-95: g; a warp a row
+  auto load_rows = [&](int s) {
+    float* st = ring + (s % kBwdRing) * kBwdStage;
+    const int vs = v_begin + s * kSub;
+    const int nv = min(kSub, v_end - vs);
+    for (int row = warp; row < kBwdRows && !(kBwdSkip & 2);
+         row += kBwdWarps) {
+      const int pr = row % (kBwdPersons * 3);
+      const int p = p0 + pr / 3;
+      const float* src = (row < kBwdPersons * 3 ? vpos : gin) +
+                         ((size_t)min(p, n - 1) * 3 + pr % 3) * v_count + vs;
+      const int nr = p < n ? nv : 0;
+      // 16-byte copies where the row starts 16-byte aligned (every other
+      // row when V % 4 == 2), else 8- or 4-byte ones
       const uintptr_t al = reinterpret_cast<uintptr_t>(src);
       if (al % 16 == 0) {
-        copy_row<4>(dst, src, nv, vt, lane);
+        copy_row_swz<4>(st, src, nr, row, lane);
       } else if (al % 8 == 0) {
-        copy_row<2>(dst, src, nv, vt, lane);
+        copy_row_swz<2>(st, src, nr, row, lane);
       } else {
-        copy_row<1>(dst, src, nv, vt, lane);
+        copy_row_swz<1>(st, src, nr, row, lane);
       }
     }
   };
 
-  // the forward's split of A16 rows into B fragments
-  auto split_chunk = [&](int c) {
-    const float* ar = stages + (c % kBwdStages) * sfl;
-    float4* fr = frag + (c & 1) * kFrag;
-    for (int i = threadIdx.x; i < kFrag; i += blockDim.x) {
-      const int ln = i & 31;
-      const int ks = (i >> 5) % 3;
-      const int m = (i / 96) % 3;
-      const int q = i / 288;
-      const int gg = ln >> 2;
-      const float* src = ar + (2 * q + (gg >> 2)) * kARow +
-                         (4 * m + (gg & 3)) * kJ + ks * 8 + (ln & 3);
-      uint32_t h0, l0, h1, l1;
-      split(src[0], h0, l0);
-      split(src[4], h1, l1);
-      fr[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
-                          __uint_as_float(l0), __uint_as_float(l1));
-    }
-  };
+  // dA16 of the quad's 4 persons over the warp's vertices: rows 4 person
+  // + n of m group m (M), joints (N, 3 tiles); c0 (row g, joint 2t), c1
+  // (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1)
+  float da[3][3][4] = {};
+  const int vh0 = half * kWarpVerts;      // the warp's first vertex in a stage
 
-  auto compute_dv = [&](int c) {
-    const float4* fr = frag + (c & 1) * kFrag;
-    const float* st = stages + (c % kBwdStages) * sfl + kChunk * kARow;
-    const bool odd = t & 1;
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int pl = 2 * q + (t >> 1);   // the person whose rows t holds
-      const int person = p_begin + c * kChunk + pl;
-      const float* gs = st + (kChunk * 3 + pl * 3) * vrow + vw;
-      float acc3[3][2][4] = {};
-#pragma unroll
+  // dv: T16 rows 4m + 2 (t & 1) and + 1 of person 2 pair + (t >> 1) of
+  // the quad at the warp's vertices g, g + 8 of each m16 tile (the
+  // forward's MMAs), summed against g's three rows
+  auto t16_part = [&](const float* st, int vs) {
+    if (kBwdSkip & 64) return;
+    // (loops left rolled where unrolling would lift the register use past
+    // the 128 that two CTAs an SM allow)
+#pragma unroll 1
+    for (int pair = 0; pair < 2; ++pair) {
+      float acc[3][2][4] = {};
+#pragma unroll 1
       for (int ks = 0; ks < 3; ++ks) {
+        uint32_t whi[2][4], wlo[2][4];
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt) {
+          const int ia = ((2 * half + mt) * 3 + ks) * 32 + lane;
+          const float4 h4 = wafrag[ia], l4 = wafrag[kWaFrag / 2 + ia];
+          whi[mt][0] = __float_as_uint(h4.x);
+          whi[mt][1] = __float_as_uint(h4.y);
+          whi[mt][2] = __float_as_uint(h4.z);
+          whi[mt][3] = __float_as_uint(h4.w);
+          wlo[mt][0] = __float_as_uint(l4.x);
+          wlo[mt][1] = __float_as_uint(l4.y);
+          wlo[mt][2] = __float_as_uint(l4.z);
+          wlo[mt][3] = __float_as_uint(l4.w);
+        }
 #pragma unroll
         for (int m = 0; m < 3; ++m) {
-          const float4 b = fr[((q * 3 + m) * 3 + ks) * 32 + lane];
+          const float4 b =
+              afrag[(((quad * 2 + pair) * 3 + m) * 3 + ks) * 32 + lane];
           const uint32_t bh0 = __float_as_uint(b.x), bh1 = __float_as_uint(b.y);
           const uint32_t bl0 = __float_as_uint(b.z), bl1 = __float_as_uint(b.w);
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
-            mma_tf32(acc3[m][mt], wlo[mt][ks], bh0, bh1);
-            mma_tf32(acc3[m][mt], whi[mt][ks], bl0, bl1);
-            mma_tf32(acc3[m][mt], whi[mt][ks], bh0, bh1);
+            if (kBwdSkip & 1) {
+              acc[m][mt][0] += b.x + __uint_as_float(whi[mt][0] ^ wlo[mt][3]);
+              continue;
+            }
+            mma_tf32(acc[m][mt], wlo[mt], bh0, bh1);
+            mma_tf32(acc[m][mt], whi[mt], bl0, bl1);
+            mma_tf32(acc[m][mt], whi[mt], bh0, bh1);
           }
         }
       }
-      if (person >= p_end) continue;
+      const int pc = 4 * quad + 2 * pair + (t >> 1);   // person in the CTA
+      const int person = p0 + pc;
+      if (person >= n) continue;
+      // even t: dv rows 0 and 1; odd t: row 2 (its second T16 row, 3, is
+      // the translation)
+      float* dst = dv_out + ((size_t)person * 3 + ((t & 1) << 1)) * v_count;
 #pragma unroll
       for (int mt = 0; mt < 2; ++mt) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int vl = mt * 16 + g + 8 * h;
-          const int v = v0 + vw + vl;
-          if (v >= v_count) continue;
-          const float g0 = gs[vl], g1 = gs[vrow + vl], g2 = gs[2 * vrow + vl];
-          // rows r0 = 2 (t & 1) and r0 + 1 of T16 at this vertex
-          const float s0 = acc3[0][mt][2 * h] * g0 +
-                           acc3[1][mt][2 * h] * g1 + acc3[2][mt][2 * h] * g2;
-          float* dst = dv_out + (size_t)person * 3 * v_count + v;
-          if (odd) {
-            dst[2 * (size_t)v_count] = s0;     // row 3 is the translation
-          } else {
-            dst[0] = s0;
-            dst[v_count] = acc3[0][mt][2 * h + 1] * g0 +
-                           acc3[1][mt][2 * h + 1] * g1 +
-                           acc3[2][mt][2 * h + 1] * g2;
-          }
+          const int vl = vh0 + mt * 16 + g + 8 * h;
+          const int v = vs + vl;
+          const float g0 = st[at(kBwdPersons * 3 + 3 * pc, vl)];
+          const float g1 = st[at(kBwdPersons * 3 + 3 * pc + 1, vl)];
+          const float g2 = st[at(kBwdPersons * 3 + 3 * pc + 2, vl)];
+          const float s0 = acc[0][mt][2 * h] * g0 + acc[1][mt][2 * h] * g1 +
+                           acc[2][mt][2 * h] * g2;
+          const float s1 = acc[0][mt][2 * h + 1] * g0 +
+                           acc[1][mt][2 * h + 1] * g1 +
+                           acc[2][mt][2 * h + 1] * g2;
+          // (a build without dv stores keeps one that never happens)
+          const bool ok = v < v_end && (!(kBwdSkip & 16) || s0 == 1.2345f);
+          if (ok) dst[v] = s0;
+          if (ok && !(t & 1)) dst[v_count + v] = s1;
         }
       }
     }
   };
 
-  // dA16 of the chunk's 4 persons over the warp's 32 vertices, into red
-  auto compute_da = [&](int c) {
-    const float* st = stages + (c % kBwdStages) * sfl + kChunk * kARow;
-    float acc[3][3][4] = {};
-#pragma unroll
+  // dA16: per m group, a m16n8k8 product over the warp's 32 vertices (4 k
+  // steps of 8), A = g[m] * vh[n] formed and split in registers, B = W from
+  // the split fragments; the sums stay in registers
+  auto da16_part = [&](const float* st) {
+    if (kBwdSkip & 128) return;
+#pragma unroll 1
     for (int ks = 0; ks < 4; ++ks) {
-      const int vl = vw + ks * 8 + t;
+      const int kb = vh0 + ks * 8;
+      float4 wbf[3];
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt) {
+        wbf[nt] = wbfrag[(((vh0 >> 3) + ks) * 3 + nt) * 32 + lane];
+      }
+      // a0 (row g, k t), a1 (row g+8, k t), a2 (row g, k t+4), a3 (g+8,
+      // t+4); row = 4 * person + n
+      float vh[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = g + (r & 1) * 8;
+        const int nn = row & 3;
+        const int k = kb + t + (r >> 1) * 4;
+        vh[r] = nn == 3 ? 1.f : st[at(3 * (4 * quad + (row >> 2)) + nn, k)];
+      }
 #pragma unroll
       for (int m = 0; m < 3; ++m) {
-        // a0 (row g, k t), a1 (row g+8, k t), a2 (row g, k t+4), a3 (g+8,
-        // t+4); row = 4 * person + n, the value g[m] * vh[n]
         uint32_t ahi[4], alo[4];
 #pragma unroll
         for (int r = 0; r < 4; ++r) {
           const int row = g + (r & 1) * 8;
-          const int p = row >> 2, nn = row & 3;
-          const int k = vl + (r >> 1) * 4;
-          const float gv = st[(kChunk * 3 + p * 3 + m) * vrow + k];
-          const float vh = nn == 3 ? 1.f : st[(p * 3 + nn) * vrow + k];
-          split(gv * vh, ahi[r], alo[r]);
+          const int k = kb + t + (r >> 1) * 4;
+          const float gv =
+              st[at(kBwdPersons * 3 + 3 * (4 * quad + (row >> 2)) + m, k)];
+          split_rna(gv * vh[r], ahi[r], alo[r]);
         }
 #pragma unroll
         for (int nt = 0; nt < 3; ++nt) {
-          mma_tf32(acc[m][nt], alo, wbhi[ks][nt][0], wbhi[ks][nt][1]);
-          mma_tf32(acc[m][nt], ahi, wblo[ks][nt][0], wblo[ks][nt][1]);
-          mma_tf32(acc[m][nt], ahi, wbhi[ks][nt][0], wbhi[ks][nt][1]);
-        }
-      }
-    }
-    // c0 (row g, col 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1);
-    // red[warp][person][4m + n][j]
-    float* rw = red + warp * kDaFloats;
-#pragma unroll
-    for (int m = 0; m < 3; ++m) {
-#pragma unroll
-      for (int nt = 0; nt < 3; ++nt) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const int row = g + (r >> 1) * 8;
-          const int j = nt * 8 + 2 * t + (r & 1);
-          rw[((row >> 2) * 12 + 4 * m + (row & 3)) * kJ + j] = acc[m][nt][r];
+          const uint32_t bh0 = __float_as_uint(wbf[nt].x);
+          const uint32_t bh1 = __float_as_uint(wbf[nt].y);
+          const uint32_t bl0 = __float_as_uint(wbf[nt].z);
+          const uint32_t bl1 = __float_as_uint(wbf[nt].w);
+          if (kBwdSkip & 1) {
+            da[m][nt][0] += __uint_as_float(ahi[0] ^ alo[1] ^ bh0 ^ bl1);
+            continue;
+          }
+          mma_tf32(da[m][nt], alo, bh0, bh1);
+          mma_tf32(da[m][nt], ahi, bl0, bl1);
+          mma_tf32(da[m][nt], ahi, bh0, bh1);
         }
       }
     }
   };
 
-  // one group committed per chunk slot, empty past the last chunk
-#pragma unroll
-  for (int c = 0; c < kBwdStages - 1; ++c) {
-    if (c < nchunks) load_chunk(c);
+  fetch_w(0);
+  load_rows(0);
+  cp_commit();
+  for (int s = 0; s < nsub; ++s) {
+    // stage s - 1's products are done: the W fragments and its ring stage
+    // are free (and, at s = 0, the A16 fragments are visible)
+    __syncthreads();
+    put_w();
+    if (s + 1 < nsub) load_rows(s + 1);
     cp_commit();
+    cp_wait<1>();        // this thread's copies of stage s are in
+    __syncthreads();     // everyone's, and the W fragments, are visible
+    const float* st = ring + (s % kBwdRing) * kBwdStage;
+    t16_part(st, v_begin + s * kSub);
+    // the next stage's W between the parts (where fewer registers live)
+    if (s + 1 < nsub) fetch_w(s + 1);
+    da16_part(st);
   }
-  cp_wait<kBwdStages - 2>();   // chunk 0 is in
+  cp_wait<0>();
+
+  // the segment's end: a quad's second warp hands its sums to the first
+  // through shared memory, which adds them in that order and stores dA16
+  // rows 0-11 (one segment) or the segment's partial
+  const bool whole = gridDim.x == 1;
+  if (kBwdSkip & 4) {
+    // (a build without the meeting keeps stores that never happen)
+#pragma unroll
+    for (int i = 0; i < kDaRegs; ++i) {
+      if ((&da[0][0][0])[i] == 1.2345f) da_out[threadIdx.x] = 1.f;
+    }
+    return;
+  }
+  __syncthreads();       // the last stage's reads are done
+  float* red = ring + quad * kDaRegs * 32;
+  if (half == 1) {
+#pragma unroll
+    for (int i = 0; i < kDaRegs; ++i) red[i * 32 + lane] = (&da[0][0][0])[i];
+  }
   __syncthreads();
-  split_chunk(0);
-  for (int c = 0; c < nchunks; ++c) {
-    cp_wait<kBwdStages - 3>();   // chunk c + 1 is in
-    // chunk c's fragments, chunk c + 1's stage and the last chunk's red
-    // reads are done; chunk c - 1's stage and fragments are free
-    __syncthreads();
-    if (c + kBwdStages - 1 < nchunks) load_chunk(c + kBwdStages - 1);
-    cp_commit();
-    if (c + 1 < nchunks) split_chunk(c + 1);
-    compute_dv(c);
-    compute_da(c);
-    __syncthreads();
-    // the warps' sums in warp order: this tile's partial of each person
-    const int pc = p_begin + c * kChunk;
-    for (int i = threadIdx.x; i < kDaFloats; i += blockDim.x) {
-      const int p = pc + i / (12 * kJ);
-      float s = 0.f;
-      for (int wi = 0; wi < warps; ++wi) s += red[wi * kDaFloats + i];
-      if (p < p_end) {
-        partial[((size_t)blockIdx.x * n + p) * (12 * kJ) + i % (12 * kJ)] = s;
+  if (half == 1) return;
+#pragma unroll
+  for (int m = 0; m < 3; ++m) {
+#pragma unroll
+    for (int nt = 0; nt < 3; ++nt) {
+#pragma unroll
+      for (int hr = 0; hr < 2; ++hr) {
+        const int i = (m * 3 + nt) * 4 + 2 * hr;
+        const int row = g + 8 * hr;
+        const int person = p0 + 4 * quad + (row >> 2);
+        if (person >= n) continue;
+        const float2 val = make_float2(da[m][nt][2 * hr] + red[i * 32 + lane],
+                                       da[m][nt][2 * hr + 1] +
+                                           red[(i + 1) * 32 + lane]);
+        const int r16 = 4 * m + (row & 3);
+        const int j = nt * 8 + 2 * t;
+        float* dst = whole ? da_out + ((size_t)person * 16 + r16) * kJ + j
+                           : da_out + (((size_t)seg * n + person) * 12 + r16) *
+                                          kJ + j;
+        *reinterpret_cast<float2*>(dst) = val;
       }
     }
   }
-  cp_wait<0>();
+  if (whole) {
+    // rows 12-15 of the quad's persons are zero
+    for (int e = lane; e < 4 * 4 * kJ; e += 32) {
+      const int person = p0 + 4 * quad + e / (4 * kJ);
+      if (person < n) {
+        da_out[((size_t)person * 16 + 12) * kJ + e % (4 * kJ)] = 0.f;
+      }
+    }
+  }
 }
 
-// da16[b, r, j] = sum over the vertex tiles, in order, of partial[tile, b,
-// r, j] (r < 12); rows 12-15 zero
-__global__ void skinning_bwd_reduce_kernel(const float* __restrict__ partial,
-                                           float* __restrict__ da16, int n,
-                                           int tiles) {
+// da16[b, r, j] = sum over the segments, in order, of partial[seg, b, r, j]
+// (r < 12); rows 12-15 zero
+__global__ void skinning_bwd_sum_kernel(const float* __restrict__ partial,
+                                        float* __restrict__ da16, int n,
+                                        int segments) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n * 16 * kJ) return;
   const int b = i / (16 * kJ), e = i % (16 * kJ);
   float s = 0.f;
   if (e < 12 * kJ) {
-    for (int k = 0; k < tiles; ++k) {
+    for (int k = 0; k < segments; ++k) {
       s += partial[((size_t)k * n + b) * (12 * kJ) + e];
     }
   }
   da16[i] = s;
+}
+
+// the backward kernel's attributes, once per device: its dynamic shared
+// memory and the largest shared-memory carveout, so two CTAs fit an SM
+cudaError_t bwd_attributes() {
+  static bool set[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && set[dev])) return err;
+  err = cudaFuncSetAttribute(skinning_bwd_segment_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bwd_smem_bytes());
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(skinning_bwd_segment_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess && dev < 64) set[dev] = true;
+  return err;
 }
 
 }  // namespace
@@ -645,42 +832,45 @@ extern "C" int romp_skinning_f32(const float* a16, const float* w,
 }
 
 // The backward: a16 (n, 16, j), w (v_count, j), vpos and g (n, 3, v_count)
-// -> dv (n, 3, v_count) and da16 (n, 16, j), through `partial` (tiles, n,
-// 12, j) scratch, tiles = ceil(v_count / (32 warps)); the launch plan is
-// the forward's. Same contract as romp_skinning_f32.
+// -> dv (n, 3, v_count) and da16 (n, 16, j). The launch plan is ops/lbs.py
+// `skinning_bwd_plan`'s: `segments` vertex segments of `seg_verts` (a
+// multiple of 64) vertices, segments = ceil(v_count / seg_verts); with
+// more than one, the segments' dA16 partials go through `partial`
+// (segments, n, 12, j) scratch and a second kernel adds them in order
+// (`partial` may be null with one segment). Same contract as
+// romp_skinning_f32.
 extern "C" int romp_skinning_bwd_f32(const float* a16, const float* w,
                                      const float* vpos, const float* g,
                                      float* dv, float* partial, float* da16,
-                                     int n, int v_count, int j, int warps,
-                                     int persons, cudaStream_t stream) {
-  if (j != kJ || n <= 0 || v_count <= 0 || warps < 1 || warps > kMaxWarps ||
-      persons < kChunk || persons % kChunk != 0 ||
-      (n + persons - 1) / persons > 65535 ||
-      reinterpret_cast<uintptr_t>(a16) % 16 != 0 ||
-      bwd_smem_bytes(warps) > kMaxSmem) {
+                                     int n, int v_count, int j, int seg_verts,
+                                     int segments, cudaStream_t stream) {
+  if (j != kJ || n <= 0 || v_count <= 0 || seg_verts <= 0 ||
+      seg_verts % kSub != 0 ||
+      segments != (v_count + seg_verts - 1) / seg_verts ||
+      (n + kBwdPersons - 1) / kBwdPersons > 65535 ||
+      (segments > 1 && partial == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int vt = warps * kWarpVerts;
-  const int tiles = (v_count + vt - 1) / vt;
-  const dim3 grid(tiles, (n + persons - 1) / persons);
-  const int smem = bwd_smem_bytes(warps);
-  static int smem_set[64] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = bwd_attributes();
   if (err != cudaSuccess) return (int)err;
-  if (smem > 48 * 1024 && (dev >= 64 || smem_set[dev] < smem)) {
-    err = cudaFuncSetAttribute(skinning_bwd_tf32_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-    if (err != cudaSuccess) return (int)err;
-    if (dev < 64) smem_set[dev] = smem;
-  }
-  skinning_bwd_tf32_kernel<<<grid, warps * 32, smem, stream>>>(
-      a16, w, vpos, g, dv, partial, n, v_count, persons);
+  const dim3 grid(segments, (n + kBwdPersons - 1) / kBwdPersons);
+  skinning_bwd_segment_kernel<<<grid, kBwdWarps * 32, bwd_smem_bytes(),
+                                stream>>>(a16, w, vpos, g, dv,
+                                          segments > 1 ? partial : da16, n,
+                                          v_count, seg_verts);
   err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess || segments == 1 || (kBwdSkip & 8)) return (int)err;
   const int total = n * 16 * kJ;
-  skinning_bwd_reduce_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
-      partial, da16, n, tiles);
+  skinning_bwd_sum_kernel<<<(total + 255) / 256, 256, 0, stream>>>(
+      partial, da16, n, segments);
   return (int)cudaGetLastError();
+}
+
+// CTAs of the backward's segment kernel that fit one SM at once (the
+// CUDA occupancy calculator), into *ctas; returns the cudaError_t.
+extern "C" int romp_skinning_bwd_occupancy(int* ctas) {
+  cudaError_t err = bwd_attributes();
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, skinning_bwd_segment_kernel, kBwdWarps * 32, bwd_smem_bytes());
 }

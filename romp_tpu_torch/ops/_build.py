@@ -14,6 +14,7 @@ headers takes minutes to compile, a plain-C one seconds.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -39,6 +40,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "romp_skinning_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "romp_skinning_bwd_f32": [_P] * 7 + [_I] * 5 + [_P],
+    "romp_skinning_bwd_occupancy": [_P],
     "romp_conv3x3_bn_act": [_P] * 8 + [_I] * 8 + [_P],
     "romp_basic_chain": [_P] * 9 + [_I] * 9 + [_P],
     "romp_basic_chain_bf16": [_P] * 10 + [_I] * 9 + [_P],
@@ -153,20 +155,26 @@ def kernel_resources(name: str) -> List[dict]:
     return rows
 
 
-def sass_opcodes(name: str, opcodes: Tuple[str, ...]) -> dict:
-    """For each kernel of the built library whose mangled name contains
-    `name`: the count of SASS instructions that start with one of
-    `opcodes`, from `cuobjdump -sass` (which ships with nvcc). Raises if
-    cuobjdump is missing or finds no such kernel."""
+@functools.lru_cache(maxsize=None)
+def _sass(library: str) -> str:
+    """`cuobjdump -sass` of the library (which ships with nvcc), read once
+    for all the kernels asked about."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = os.path.join(home, "bin", "cuobjdump")
     tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
     if tool is None:
         raise RuntimeError("cuobjdump not found (set CUDA_HOME)")
-    sass = subprocess.run([tool, "-sass", str(build())], capture_output=True,
+    return subprocess.run([tool, "-sass", library], capture_output=True,
                           text=True, check=True).stdout
+
+
+def sass_opcodes(name: str, opcodes: Tuple[str, ...]) -> dict:
+    """For each kernel of the built library whose mangled name contains
+    `name`: the count of SASS instructions that start with one of
+    `opcodes`, from `cuobjdump -sass`. Raises if cuobjdump is missing or
+    finds no such kernel."""
     counts, cur = {}, None
-    for line in sass.splitlines():
+    for line in _sass(str(build())).splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             cur = m.group(1) if name in m.group(1) else None

@@ -18,8 +18,17 @@ in split TF32 (`tf32_round`, `split_tf32_matmul` model its arithmetic).
 
 with vh = [v_posed; 1], rows 12-15 of dA16 zero and no gradient for the
 lbs weights (JAX gives them a zero cotangent). On CUDA tensors it is a
-second kernel of `csrc/lbs.cu` (`skinning_backward`), which recomputes T16
-in registers as the forward does; `skinning_bwd_plain` is its twin.
+second kernel of `csrc/lbs.cu` (`skinning_backward`); `skinning_bwd_plain`
+is its twin. A CTA owns 16 persons and one segment of V, recomputes T16 in
+registers for dv as the forward does, and keeps its persons' dA16 in
+registers over the whole segment; `skinning_bwd_plan` picks the segments
+(one where the persons alone fill the card, at N = 4096), and a second
+kernel adds the segments' partials in order. Bytes bind on paper (g and
+v_posed read, dv written: 0.307 ms at N = 4096 at 3.35 TB/s), but the
+split-TF32 `mma.sync` products hold the tensor cores about as long, and
+the parts add up: 0.890-0.896 ms of device time at N = 4096, 0.130 ms at
+the train steps' N = 512, on an H100 80GB HBM3 at 700 W (34% and 30% of
+the bound; the previous design 1.223-1.233 and 0.172 ms, PERF.md).
 
 Both are bound as `torch.library` custom ops, `romp_tpu_torch::skinning`
 and `romp_tpu_torch::skinning_bwd` (the second the first's registered
@@ -47,6 +56,15 @@ MAX_SMEM = 232448
 # (CTAs over that) at least 4 deep before persons per CTA grow
 TARGET_CTAS = 2 * 132
 WAVES = 4
+# csrc/lbs.cu's backward: persons per CTA (4 warp pairs of 4 persons),
+# vertices per ring stage (a pair's two warps, 32 each), ring stages; and
+# the shared memory of one SM that CTAs may take (228 KB, of which each
+# resident CTA reserves 1 KB)
+BWD_PERSONS = 16
+BWD_SUB = 64
+BWD_RING = 2
+SM_SMEM = 233472
+CTA_RESERVED_SMEM = 1024
 
 
 class SkinningPlan(NamedTuple):
@@ -86,6 +104,48 @@ def skinning_plan(n: int, v: int) -> SkinningPlan:
     persons = CHUNK * per
     return SkinningPlan(warps, persons, grid_v, -(-n // persons),
                         skinning_smem(warps))
+
+
+class SkinningBwdPlan(NamedTuple):
+    segments: int   # vertex segments (grid x), each one CTA's per person group
+    seg_verts: int  # vertices per segment, a multiple of BWD_SUB
+    groups: int     # person groups of BWD_PERSONS (grid y)
+    smem: int       # dynamic shared memory per CTA, bytes
+
+    @property
+    def ctas(self) -> int:
+        return self.segments * self.groups
+
+    def partial_shape(self, n: int):
+        """The dA16 partials' scratch, one per (segment, person), rows
+        0-11; None where one segment writes dA16 itself."""
+        return None if self.segments == 1 else (self.segments, n, 12, 24)
+
+
+def skinning_bwd_smem() -> int:
+    """csrc/lbs.cu `bwd_smem_bytes`: the split A16 fragments of the CTA's
+    persons (8 pairs x 3 m x 3 k steps x 32 lanes x float4), the split W
+    fragments of a stage in both layouts (the m16 tiles' hi and lo A
+    fragments, the 8-vertex k steps' B fragments), and the ring's stages
+    (v_posed and g rows of BWD_PERSONS persons x BWD_SUB vertices)."""
+    a16 = (BWD_PERSONS // 2) * 3 * 3 * 32
+    wa = (BWD_SUB // 16) * 3 * 32 * 2
+    wb = (BWD_SUB // 8) * 3 * 32
+    return (a16 + wa + wb) * 16 + BWD_RING * 2 * BWD_PERSONS * 3 * BWD_SUB * 4
+
+
+def skinning_bwd_plan(n: int, v: int) -> SkinningBwdPlan:
+    """The backward's launch for n persons and v vertices. A CTA owns
+    BWD_PERSONS persons and one vertex segment, and keeps their dA16 in
+    registers over it. Segments (whole stages of BWD_SUB vertices) split V
+    as far as TARGET_CTAS CTAs (two an SM) ask: at N = 4096 the 256 person
+    groups fill the card with one segment, which then writes dA16 with no
+    partials; at N = 512 8 segments, at N = 64 54."""
+    groups = -(-n // BWD_PERSONS)
+    subs = -(-v // BWD_SUB)
+    per = -(-subs // min(subs, max(1, TARGET_CTAS // groups)))
+    return SkinningBwdPlan(-(-subs // per), per * BWD_SUB, groups,
+                           skinning_bwd_smem())
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -181,26 +241,26 @@ def _skinning_cuda(a16: torch.Tensor, weights: torch.Tensor,
 def _skinning_bwd_cuda(a16: torch.Tensor, weights: torch.Tensor,
                        v_posed: torch.Tensor, g: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernel pair (`csrc/lbs.cu` `romp_skinning_bwd_f32`):
-    the CUDA implementation of `romp_tpu_torch::skinning_bwd`."""
+    """The backward kernels (`csrc/lbs.cu` `romp_skinning_bwd_f32`): the
+    CUDA implementation of `romp_tpu_torch::skinning_bwd`."""
     B, V = _check_operands("skinning_backward", a16, weights, v_posed,
                            ("g", g))
     da16 = torch.empty((B, 16, 24), dtype=torch.float32, device=a16.device)
     dv = torch.empty((B, 3, V), dtype=torch.float32, device=a16.device)
     if B == 0:
         return da16, dv
-    if a16.data_ptr() % 16:
-        a16 = a16.clone()
-    plan = skinning_plan(B, V)
-    # dA16 partial sums, one per vertex tile
-    partial = torch.empty((plan.grid_v, B, 12, 24), dtype=torch.float32,
-                          device=a16.device)
+    plan = skinning_bwd_plan(B, V)
+    shape = plan.partial_shape(B)
+    # dA16 partial sums, one per (segment, person), where V is split
+    partial = None if shape is None else torch.empty(
+        shape, dtype=torch.float32, device=a16.device)
     lib = _build.load()
     with torch.cuda.device(a16.device):
         err = lib.romp_skinning_bwd_f32(
             a16.data_ptr(), weights.data_ptr(), v_posed.data_ptr(),
-            g.data_ptr(), dv.data_ptr(), partial.data_ptr(), da16.data_ptr(),
-            B, V, 24, plan.warps, plan.persons,
+            g.data_ptr(), dv.data_ptr(),
+            None if partial is None else partial.data_ptr(), da16.data_ptr(),
+            B, V, 24, plan.seg_verts, plan.segments,
             torch.cuda.current_stream().cuda_stream)
     _build.check(err, "romp_skinning_bwd_f32")
     skinning_backward.launches += 1
@@ -251,12 +311,13 @@ def skinning_backward(a16: torch.Tensor, weights: torch.Tensor,
                       v_posed: torch.Tensor, g: torch.Tensor):
     """The backward kernel (`csrc/lbs.cu` `romp_skinning_bwd_f32`) for CUDA
     tensors, `skinning_bwd_plain` for CPU tensors: (dA16, dv), through the
-    custom op `romp_tpu_torch::skinning_bwd`. Its dA16 is summed over
-    vertex tiles in a second pass, in a fixed order: no float atomics, so a
-    step's result does not depend on the schedule.
+    custom op `romp_tpu_torch::skinning_bwd`. Where `skinning_bwd_plan`
+    splits V into segments, dA16 is summed over them in a second kernel,
+    in a fixed order: no float atomics, so a step's result does not depend
+    on the schedule.
 
-    `skinning_backward.launches` counts kernel launches (the pair of
-    kernels is one launch)."""
+    `skinning_backward.launches` counts kernel launches (the segment
+    kernel with its sum kernel is one launch)."""
     return torch.ops.romp_tpu_torch.skinning_bwd(a16, weights, v_posed, g)
 
 

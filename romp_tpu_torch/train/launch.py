@@ -18,6 +18,7 @@ pretraining has its own launcher, `romp_tpu_torch.train.pretrain`.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os.path as osp
 import sys
 
@@ -214,9 +215,8 @@ def run_trace_training(cfg, args, device) -> int:
         else:
             it = make_iter(cfg.train.seed)
         try:
-            for i, batch in enumerate(it):
-                if args.max_steps is not None and i >= args.max_steps:
-                    break
+            # islice: the loader builds no batch beyond max_steps
+            for i, batch in enumerate(itertools.islice(it, args.max_steps)):
                 _, m = trace_train_step(state, batch, ttcfg)
                 if names is None:
                     names = tuple(sorted(m))

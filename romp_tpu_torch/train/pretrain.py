@@ -28,6 +28,7 @@ the port's.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import sys
 from typing import Dict, Tuple
 
@@ -270,10 +271,9 @@ def main(input_args=None) -> int:
 
     # packed metrics, read one step late (as Trainer.fit): one copy to the
     # host a step, and the device does not wait for the host's logging
-    for i, batch in enumerate(batch_iterator(mixed, cfg.train.batch_size,
-                                             seed=cfg.train.seed)):
-        if args.max_steps is not None and i >= args.max_steps:
-            break
+    for i, batch in enumerate(itertools.islice(
+            batch_iterator(mixed, cfg.train.batch_size, seed=cfg.train.seed),
+            args.max_steps)):
         batch = batch_to_device({k: batch[k] for k in BATCH_KEYS}, device)
         _, m = pretrain_step(state, batch, pcfg)
         if names is None:

@@ -18,6 +18,7 @@ package's archives.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import os.path as osp
@@ -260,9 +261,8 @@ class Trainer:
                                      self.state)
 
         pending = None                 # (packed metrics, step)
-        for i, batch in enumerate(batches):
-            if max_steps is not None and i >= max_steps:
-                break
+        # islice: a run of max_steps steps asks for no batch beyond them
+        for batch in itertools.islice(batches, max_steps):
             packed = self.step(batch)
             n_done += 1
             step = step0 + n_done

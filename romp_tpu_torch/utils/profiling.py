@@ -31,7 +31,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -173,15 +173,19 @@ def profile_trace(pipe: TracePipeline, calls: int = 2, clips: int = 4,
                 **row), table
 
 
-def device_profile(fn, calls: int, warmup: int) -> Tuple[dict, str]:
+def device_profile(fn, calls: int, warmup: int,
+                   table: bool = True) -> Tuple[dict, Optional[str]]:
     """fn() `calls` times under torch.profiler after `warmup` calls: wall
     and device-busy ms, idle share, kernels, busy time by kind, per call;
-    and the op table."""
+    and the op table. With table=False only the device is traced and no
+    table is made (None): the host then reads a fraction of the events,
+    which on a train step's tens of thousands of kernels takes seconds."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = ([ProfilerActivity.CPU, ProfilerActivity.CUDA] if table
+                  else [ProfilerActivity.CUDA])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
@@ -202,9 +206,10 @@ def device_profile(fn, calls: int, warmup: int) -> Tuple[dict, str]:
                busy_ms_per_call_by_kind={
                    k: v / 1e3 / calls for k, v in sorted(
                        by_kind.items(), key=lambda kv: -kv[1])})
-    table = prof.key_averages().table(sort_by="self_device_time_total",
-                                      row_limit=30)
-    return row, table
+    if not table:
+        return row, None
+    return row, prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=30)
 
 
 def main(argv=None) -> None:

@@ -3,9 +3,12 @@
 Skips without a CUDA device. On a machine with one:
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 """
+import ctypes
+
 import pytest
 import torch
 
+from romp_tpu_torch.ops import _build
 from romp_tpu_torch.ops.deform_conv import (
     bwd_global_share, bwd_plan, deform_conv2d, deform_conv2d_backward,
     deform_conv2d_bwd_plain, deform_conv2d_plain,
@@ -244,11 +247,13 @@ def test_kernel_wrappers_raise_under_grad(dev):
 
 
 @pytest.mark.parametrize("N,V", [(1, 6890), (4, 6890), (37, 6890),
-                                 (512, 6890), (37, 129), (5, 1000)])
+                                 (512, 6890), (37, 129), (5, 1000),
+                                 (4096, 6890)])
 def test_skinning_backward_kernel_matches_plain(dev, N, V):
     """The backward kernel (dA16, dv) against `skinning_bwd_plain` on the
-    card: ragged person chunks (N = 1, 37, 5), ragged vertex tiles (V =
-    129, 1000) and the train step's N = 64 x 8 = 512. Bar 1e-4 of
+    card: ragged person groups (N = 1, 37, 5), ragged vertex stages (V =
+    129, 1000), the train step's N = 64 x 8 = 512 (8 segments) and N =
+    4096 (one segment, dA16 written by the segment kernel). Bar 1e-4 of
     max|ref|, the forward's; rows 12-15 of dA16 are zero; one launch."""
     g = torch.Generator().manual_seed(N + V)
     a16 = torch.randn(N, 16, 24, generator=g).to(dev)
@@ -263,6 +268,29 @@ def test_skinning_backward_kernel_matches_plain(dev, N, V):
     ra, rv = skinning_bwd_plain(a16, w, vpos, cot)
     assert _rel(da, ra) <= 1e-4 and _rel(dv, rv) <= 1e-4
     assert not da[:, 12:].any()
+
+
+@pytest.mark.parametrize("N", [64, 512, 4096])
+def test_skinning_backward_kernel_is_bitwise_repeatable(dev, N):
+    """Two launches on the same inputs give bitwise-equal dA16 and dv: no
+    float atomics, the segments' partials added in a fixed order."""
+    g = torch.Generator().manual_seed(N)
+    a16 = torch.randn(N, 16, 24, generator=g).to(dev)
+    w = torch.rand(6890, 24, generator=g).to(dev)
+    vpos = torch.randn(N, 3, 6890, generator=g).to(dev)
+    cot = torch.randn(N, 3, 6890, generator=g).to(dev)
+    da, dv = skinning_backward(a16, w, vpos, cot)
+    da2, dv2 = skinning_backward(a16, w, vpos, cot)
+    torch.cuda.synchronize()
+    assert torch.equal(da, da2) and torch.equal(dv, dv2)
+
+
+def test_skinning_backward_fits_two_ctas_an_sm(dev):
+    """The segment kernel's registers and shared memory leave room for two
+    of its 8-warp CTAs on an SM (the CUDA occupancy calculator)."""
+    ctas = ctypes.c_int(0)
+    assert _build.load().romp_skinning_bwd_occupancy(ctypes.byref(ctas)) == 0
+    assert ctas.value >= 2
 
 
 @pytest.mark.parametrize("N,V", [(2, 129), (4, 300)])

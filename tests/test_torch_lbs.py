@@ -12,8 +12,10 @@ from romp_tpu.smpl.assets import synthetic_assets
 from romp_tpu.smpl.body_model import SmplModel as JaxSmpl
 from romp_tpu.smpl.body_model import smpl_forward as jax_smpl_forward
 from romp_tpu_torch.ops.lbs import (
-    CHUNK, MAX_SMEM, WARP_VERTS, skinning, skinning_plain, skinning_plan,
-    skinning_smem, split_tf32_matmul, tf32_round,
+    BWD_PERSONS, BWD_SUB, CHUNK, CTA_RESERVED_SMEM, MAX_SMEM, SM_SMEM,
+    WARP_VERTS, skinning, skinning_bwd_plan, skinning_bwd_smem,
+    skinning_plain, skinning_plan, skinning_smem, split_tf32_matmul,
+    tf32_round,
 )
 from romp_tpu_torch.smpl.body_model import SmplModel, smpl_forward
 
@@ -131,3 +133,32 @@ def test_skinning_plan_at_the_main_path_shapes():
         p = skinning_plan(N, 6890)
         assert p.warps == 8 and p.ctas >= 2 * 132
     assert skinning_plan(4096, 6890).persons == 32
+
+
+@pytest.mark.parametrize("N", [1, 8, 37, 64, 512, 1024, 4096])
+@pytest.mark.parametrize("V", [6890, 129, 1000])
+def test_skinning_bwd_plan(N, V):
+    """The backward's launch: segments of whole ring stages cover V
+    exactly (none empty), person groups cover N; shared memory within the
+    232,448 bytes a CTA may take and two 8-warp CTAs an SM; the partials'
+    scratch follows the plan; the card has a CTA per SM wherever N and V
+    give that many (person group, stage) tiles."""
+    p = skinning_bwd_plan(N, V)
+    assert p.seg_verts % BWD_SUB == 0
+    assert p.segments * p.seg_verts >= V > (p.segments - 1) * p.seg_verts
+    assert p.groups * BWD_PERSONS >= N > (p.groups - 1) * BWD_PERSONS
+    assert p.smem == skinning_bwd_smem() <= MAX_SMEM
+    assert 2 * (p.smem + CTA_RESERVED_SMEM) <= SM_SMEM
+    assert p.partial_shape(N) == (None if p.segments == 1
+                                  else (p.segments, N, 12, 24))
+    assert p.ctas >= min(132, p.groups * -(-V // BWD_SUB))
+
+
+def test_skinning_bwd_plan_at_the_main_path_shapes():
+    """N = 64 (the CLI), 512 (the train steps), 1024 and 4096 (64 x 64
+    slots) at V = 6890 fill the 132 SMs within one wave of two CTAs an
+    SM; at 4096 the persons alone fill it: one segment, no partials."""
+    for N in (64, 512, 1024, 4096):
+        assert 132 <= skinning_bwd_plan(N, 6890).ctas <= 2 * 132
+    p = skinning_bwd_plan(4096, 6890)
+    assert p.segments == 1 and p.partial_shape(4096) is None
