@@ -1,8 +1,9 @@
 """Drive the PyTorch + CUDA port (the ROMP and BEV image paths, the TRACE
 video path with and without RAFT's optical flow, serving, the training
 of ROMP (also with bf16 activations), TRACE and BEV, 2D-pose pretraining,
-evaluation with the accuracy loop, the SMPL family, the PnP solvers, and
-model export through torch.export) once on one GPU.
+evaluation with the accuracy loop, the SMPL family, the PnP solvers,
+model export through torch.export, and data parallelism: training as
+several ranks, serving over replicas) once on one GPU.
 
     python3 chip_smoke.py
 
@@ -122,6 +123,18 @@ Phases, one line each; any failure raises and the exit code is nonzero:
     program against eager inference on the same weights, the skinning
     kernel's launches from inside the loaded program (the custom op), the
     export and load seconds, the loaded program's and eager ms.
+ dp: data parallelism (`romp_tpu_torch/parallel/mesh.py`): (a) a NCCL
+    group of one and `Trainer.fit` for 2 steps at the training defaults as
+    rank 0 of 1, against the one-process Trainer on the same state and
+    batches (expected bitwise); (b) two rank processes (on cuda:0 over
+    gloo; on cuda:0 and cuda:1 over NCCL where there are two cards), each
+    on its row of phase 5's f32 train step: their reduced gradients
+    bitwise equal, and no further from the f64 CPU gradient than 1.5x the
+    one-process card step; each rank's and one process's step time at a
+    global batch of 16; (c) a ROMP service over two replicas on cuda:0
+    against the one-device service on the same shards, image by image.
+    Its launches are the paths `dp-train` ((a) and the ranks of (b)) and
+    `dp-serve`.
 Then the kernels' JSON line, the card's name and power limit, and the
 result line.
 """
@@ -196,8 +209,9 @@ from romp_tpu_torch.pipeline.romp_pipeline import (  # noqa: E402
 from romp_tpu_torch.pipeline.trace_pipeline import (  # noqa: E402
     TraceConfig, TracePipeline,
 )
+from romp_tpu_torch.parallel import mesh  # noqa: E402
 from romp_tpu_torch.serve import (  # noqa: E402
-    InferenceClient, build_server, serve_args,
+    InferenceClient, build_server, make_romp_service, serve_args,
 )
 from romp_tpu_torch.smpl.body_model import (  # noqa: E402
     SmplModel, synthetic_assets,
@@ -219,6 +233,9 @@ from romp_tpu_torch.train.data.video_dataset import (  # noqa: E402
 )
 from romp_tpu_torch.train.priors import GmmPrior  # noqa: E402
 from romp_tpu_torch.train.trainer import Trainer  # noqa: E402
+from romp_tpu_torch.train.trainer import (  # noqa: E402
+    train_config as step_config,
+)
 from romp_tpu_torch.utils.chain_plans import device_events  # noqa: E402
 from romp_tpu_torch.utils.kernel_breakdown import (  # noqa: E402
     BWD_PREFIX, kernel_us, warm_clocks,
@@ -1821,6 +1838,15 @@ def grads_vs_f64(results, what):
     return row, checks
 
 
+def train_step_inputs():
+    """The f32 train step that phase 5 and the dp phase hold against f64:
+    the full-width HRNet-W32's seeded weights, a batch of 2 x 4 persons at
+    256x256 (on the CPU), no remat, the synthetic SMPL assets."""
+    return (init_romp_params(torch.Generator().manual_seed(3)),
+            tts.make_synthetic_batch(3, 2, 4, 256, "cpu"),
+            tts.TrainConfig(remat="none"), synthetic_assets(seed=0))
+
+
 def phase_train_card_vs_cpu(dev):
     """One f32 train step of the full-width HRNet-W32 at batch 2 (256x256:
     the CPU side at 512x512 takes minutes), the same seeded weights and
@@ -1832,11 +1858,9 @@ def phase_train_card_vs_cpu(dev):
     exact as the CPU's: against f64, its median and its worst gradient
     error at most 2x the CPU's (measured on an H100: 0.021 and 0.148, 0.85x
     and 1.18x), the losses and BatchNorm updates within 1e-3 relative
-    (measured 2.0e-5 and 1.6e-5, as the CPU's)."""
-    sd = init_romp_params(torch.Generator().manual_seed(3))
-    batch = tts.make_synthetic_batch(3, 2, 4, 256, "cpu")
-    cfg = tts.TrainConfig(remat="none")
-    assets = synthetic_assets(seed=0)
+    (measured 2.0e-5 and 1.6e-5, as the CPU's). Returns the three steps'
+    (losses, gradients, BatchNorm updates)."""
+    sd, batch, cfg, assets = train_step_inputs()
     results = {}
     for where, d, dt in (("f64", torch.device("cpu"), torch.float64),
                          ("cpu", torch.device("cpu"), torch.float32),
@@ -1853,6 +1877,7 @@ def phase_train_card_vs_cpu(dev):
     row, checks = grads_vs_f64(results, "train")
     phase(5, "card vs cpu", path="train", **row)
     checks()
+    return results
 
 
 def phase_train_time(dev, smi):
@@ -2818,6 +2843,270 @@ def phase_export(dev, params, bev_params, smi):
     return {"export": launches}
 
 
+# ------------------------------------------------------------------- dp --
+
+DP_TIME_BATCH = 16      # the dp phase's timed steps: 8 rows a rank on two
+DP_RANK_TIMEOUT = 300   # seconds a rank process may take
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old
+
+
+def per_tensor_errs(grads, ref):
+    """(median, max) over tensors of a step's gradients' relative error
+    against the f64 step's, leaving out the tensors that are exactly zero
+    in f64 (as `grads_vs_f64`)."""
+    gmax = max(float(v.abs().max()) for v in ref.values())
+    errs = [rel_err(grads[k], v) for k, v in ref.items()
+            if float(v.abs().max()) > 1e-6 * gmax]
+    return statistics.median(errs), max(errs)
+
+
+def dp_time_step(dev, group, rank=0, world=1):
+    """The training defaults (HRNet-W32 512x512, mixed, remat "stage") at
+    a global batch of DP_TIME_BATCH x 8 persons, this rank's rows: the
+    seconds of a first step (ended by this process's device barrier), then
+    one profiled step's wall and device-busy ms."""
+    tcfg = step_config(load_config(None))
+    net = RompNet()
+    net.load_state_dict(init_romp_params(torch.Generator().manual_seed(4)))
+    state = tts.init_train_state(net.to(dev), tcfg)
+    smpl = SmplModel(synthetic_assets(seed=0), dev)
+    prior = GmmPrior.synthetic().to(dev)
+    batches = [mesh.shard_batch(tts.make_synthetic_batch(
+        300 + i, DP_TIME_BATCH, TRAIN_PERSONS, 512, dev), rank, world)
+        for i in range(2)]
+
+    def step(b):
+        tts.train_step(state, b, smpl, tcfg, prior, group)
+
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step(batches[0])
+    torch.cuda.synchronize(dev)
+    first = time.perf_counter() - t0
+    prof, _ = device_profile(lambda: step(batches[1]), 1, 0, table=False)
+    return dict(rows=len(batches[0]["image"]), first_step_s=first,
+                wall_ms=prof["wall_ms_per_call"],
+                busy_ms=prof["device_busy_ms_per_call"],
+                idle_share=prof["idle_share"],
+                kernels=prof["kernels_per_call"],
+                peak_memory_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+
+
+def dp_rank(rank, world, store, out, backend):
+    """One rank of the dp phase's two (`chip_smoke.py --dp-rank '<json>'`,
+    started by `phase_dp`): the f32 train step of `train_step_inputs` on
+    this rank's rows through `train_step` with the group, its reduced flat
+    gradient (by name) and the kernels' launches; then `dp_time_step`.
+    Writes them to `out`."""
+    dev = torch.device("cuda", rank % torch.cuda.device_count())
+    mesh.initialize_distributed(f"file://{store}", world, rank, dev, backend)
+    group = mesh.data_group()
+    try:
+        _build.load()
+        sd, batch, cfg, assets = train_step_inputs()
+        net = RompNet()
+        net.load_state_dict(sd)
+        state = tts.init_train_state(net.to(dev), cfg)
+        seen = {}
+        update = tts.optimizer_update
+
+        def capture(st, grad, c):
+            seen["grad"] = grad.detach().cpu()
+            return update(st, grad, c)
+
+        tts.optimizer_update = capture
+        reset_counts()
+        tts.train_step(state, {k: v.to(dev) for k, v in
+                               mesh.shard_batch(batch).items()},
+                       SmplModel(assets, dev), cfg,
+                       GmmPrior.synthetic().to(dev), group)
+        torch.cuda.synchronize(dev)
+        launches = launch_counts()
+        tts.optimizer_update = update
+        params = state.trainable
+        grads = dict(zip(state.names, (
+            g.view(params[k].shape) for k, g in zip(state.names, torch.split(
+                seen["grad"], [params[k].numel() for k in state.names])))))
+        del net, state, params
+        torch.cuda.empty_cache()
+        torch.save({"grads": grads, "launches": launches,
+                    "timing": dp_time_step(dev, group, rank, world)}, out)
+    finally:
+        mesh.finalize_distributed()
+
+
+def phase_dp(dev, params, assets, images16, step_results, smi):
+    """Data parallelism (`romp_tpu_torch/parallel/mesh.py`), three parts.
+    (a) A NCCL group of one (FileStore under build/), and `Trainer.fit`
+    for 2 steps at the training defaults (HRNet-W32 512x512, batch 64 x 8)
+    as rank 0 of 1 (mesh.multihost), against the one-process Trainer from
+    the same state and batches (cuDNN deterministic in both): expected
+    bitwise, else the figure; the check: the first step's metrics equal
+    and the states within 1e-3 of their largest values. Its launches are
+    the `dp-train` path's. (b) Two ranks (two processes on cuda:0 over
+    gloo with CUDA tensors, NCCL refusing two ranks on one card; cuda:0 /
+    cuda:1 over NCCL where the machine has two cards), each on its row of
+    phase 5's f32 train step (batch 2 at 256x256): their reduced flat
+    gradients bitwise equal, and its distance to the f64 CPU gradient at
+    most 1.5x the one-process card step's (median and worst tensor); their
+    kernels' launches join `dp-train`; then each rank's and the one
+    process's step time at a global batch of DP_TIME_BATCH. (c) A ROMP
+    service over two replicas on cuda:0 (f32), six requests in one batch
+    padded to 8 and split 4 + 4, against the one-device service on the
+    same 4-image shards, image by image (expected bitwise; the check:
+    within 1e-5 of each output's largest value); its launches are the
+    `dp-serve` path's. Returns the launches per path."""
+    import torch.distributed as dist
+
+    t_phase = time.perf_counter()
+    build, out, by_path = _build.BUILD_DIR, {}, {}
+    # (a) world size 1
+    store = build / "dp_store_world1"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            world_size=1, rank=0)
+    try:
+        ones = torch.ones(1, device=dev)
+        dist.all_reduce(ones)
+        smpl = SmplModel(assets, dev)
+        batches = [tts.make_synthetic_batch(400 + i, TRAIN_BATCH,
+                                            TRAIN_PERSONS, 512, dev)
+                   for i in range(2)]
+        ends, rows, counts = {}, {}, {}
+        for name, extra in (("one", ()), ("rank0of1", (
+                "mesh.multihost=true", f"mesh.coordinator=file://{store}",
+                "mesh.num_processes=1", "mesh.process_id=0"))):
+            trainer = Trainer(train_config(build / f"smoke_dp_{name}",
+                                           "train.tensorboard=false",
+                                           *extra), smpl, device=dev)
+            reset_counts()
+            with cudnn_deterministic():
+                rows[name] = recorded_fit(trainer, iter(batches), 2)
+            counts[name] = launch_counts()
+            st = trainer.state
+            ends[name] = [t.detach().clone() for t in (
+                st.flat, st.bn_flat, st.opt_state.mu, st.opt_state.nu)]
+            del trainer, st
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    by_path["dp-train"] = dict(counts["rank0of1"])
+    pairs = list(zip(ends["one"], ends["rank0of1"]))
+    world1 = dict(nccl_all_reduce_of_one=float(ones), steps=2,
+                  bitwise=all(torch.equal(a, b) for a, b in pairs),
+                  state_max_rel_diff=max(rel_err(b, a) for a, b in pairs),
+                  metrics_equal=rows["one"] == rows["rank0of1"],
+                  total=[r["total"] for r in rows["rank0of1"]],
+                  launches=counts["rank0of1"],
+                  seconds=time.perf_counter() - t_phase)
+    out["world1"] = world1
+    # (b) two ranks
+    t0 = time.perf_counter()
+    nccl = torch.cuda.device_count() >= 2
+    backend = "nccl" if nccl else "gloo"
+    store = build / "dp_store_world2"
+    store.unlink(missing_ok=True)
+    outs = [build / f"dp_rank{r}.pt" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dp-rank", json.dumps(dict(
+                                   rank=r, world=2, store=str(store),
+                                   out=str(outs[r]), backend=backend))])
+             for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=DP_RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(rcs == [0, 0], f"dp ranks exited {rcs}")
+    ranks = [torch.load(o) for o in outs]
+    ref, card = step_results["f64"][1], step_results["card"][1]
+    two = per_tensor_errs(ranks[0]["grads"], ref)
+    one = per_tensor_errs(card, ref)
+    for r in ranks:
+        for k, v in r["launches"].items():
+            by_path["dp-train"][k] += v
+    one_time = dp_time_step(dev, None)
+    out["two_ranks"] = dict(
+        devices="cuda:0, cuda:1" if nccl else "cuda:0 twice",
+        backend=backend,
+        grads_bitwise_equal=all(torch.equal(ranks[0]["grads"][k], v)
+                                for k, v in ranks[1]["grads"].items()),
+        grad_rel_err_vs_f64_median={"two_ranks": two[0], "one": one[0]},
+        grad_rel_err_vs_f64_max={"two_ranks": two[1], "one": one[1]},
+        bar="two ranks' median and worst at most 1.5x one process's",
+        launches=[r["launches"] for r in ranks],
+        seconds=time.perf_counter() - t0)
+    out["step_time"] = dict(
+        config=f"HRNet-W32 512x512, mixed, remat stage, global batch "
+               f"{DP_TIME_BATCH} x {TRAIN_PERSONS}",
+        one_process=one_time, two_ranks=[r["timing"] for r in ranks],
+        card=smi)
+    # (c) serving over two replicas
+    t0 = time.perf_counter()
+    cfg = RompConfig(compute_dtype="float32")
+    smpl = SmplModel(assets)
+    mb = make_romp_service(params, smpl, cfg, max_batch=8, window_ms=50.0,
+                           mesh=mesh.make_mesh(devices=[dev, dev]))
+    ref_service = make_romp_service(params, smpl, cfg, max_batch=4,
+                                    device=dev)
+    try:
+        imgs = np.zeros((8, 512, 512, 3), np.uint8)
+        imgs[:6] = images16[:6]
+        reset_counts()
+        res = [f.result(timeout=300) for f in [mb.submit(im)
+                                               for im in imgs[:6]]]
+        torch.cuda.synchronize()
+        by_path["dp-serve"] = launch_counts()
+        batches_run = mb.batches_run
+        shards = [ref_service.fetch(ref_service.run_batch(imgs[i:i + 4]))
+                  for i in (0, 4)]
+    finally:
+        mb.close()
+        ref_service.close()
+    worst, bitwise = 0.0, True
+    for i, r in enumerate(res):
+        for k, v in shards[i // 4].items():
+            a, b = r[k], v[i % 4]
+            if not np.array_equal(a, b):
+                bitwise = False
+                worst = max(worst, float(
+                    np.abs(a.astype(np.float64) - b).max()
+                    / max(np.abs(b.astype(np.float64)).max(), 1e-30))
+                    if np.issubdtype(b.dtype, np.floating) else np.inf)
+    out["serve"] = dict(replicas="cuda:0 twice", sizes=mb.sizes,
+                        batches=batches_run, bitwise=bitwise,
+                        max_rel_diff=worst, launches=by_path["dp-serve"],
+                        seconds=time.perf_counter() - t0)
+    phase("dp", "data parallel", seconds=time.perf_counter() - t_phase,
+          **out)
+    check(world1["metrics_equal"] or rows["one"][0] == rows["rank0of1"][0],
+          f"dp world 1: the first step's metrics differ {world1}")
+    check(world1["state_max_rel_diff"] <= 1e-3, f"dp world 1: {world1}")
+    check(by_path["dp-train"]["skinning"] == 4
+          and by_path["dp-train"]["skinning_bwd"] == 4,
+          f"dp-train launches {by_path['dp-train']}")
+    check(out["two_ranks"]["grads_bitwise_equal"],
+          "dp: the ranks' reduced gradients differ")
+    check(two[0] <= 1.5 * one[0] and two[1] <= 1.5 * one[1],
+          f"dp: two ranks' gradient vs f64 {two}, one process's {one}")
+    check(batches_run == 1 and worst <= 1e-5
+          and by_path["dp-serve"]["skinning"] == 2,
+          f"dp serving: {out['serve']}")
+    return by_path
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; the port's smoke run "
@@ -2874,7 +3163,7 @@ def main():
     phase_raft_card_vs_cpu(dev)
     phase_bev_card_vs_cpu(dev, bev_params)
     phase_bf16_card_vs_cpu(dev, params, bev_params, trace_params)
-    phase_train_card_vs_cpu(dev)
+    train_grads_vs_f64 = phase_train_card_vs_cpu(dev)
     phase_trace_train_card_vs_cpu(dev)
     serve_launches = phase_serve(dev, _build.BUILD_DIR / "smoke_weights.pth",
                                  _build.BUILD_DIR / "smoke_bev_weights.pth",
@@ -2893,6 +3182,8 @@ def main():
     phase_family(dev, smi)
     phase_pnp(dev, smi)
     new_train_launches.update(phase_export(dev, params, bev_params, smi))
+    new_train_launches.update(phase_dp(dev, params, assets, images16,
+                                       train_grads_vs_f64, smi))
 
     meta = {
         "skinning": ("romp_tpu_torch/csrc/lbs.cu",
@@ -2959,4 +3250,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank(**json.loads(sys.argv[2]))
+    else:
+        main()

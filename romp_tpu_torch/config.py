@@ -109,12 +109,19 @@ class TraceSectionConfig:
 
 @dataclasses.dataclass
 class MeshConfig:
-    n_devices: Optional[int] = None      # None = all
+    """Data parallelism (`parallel/mesh.py`), the JAX package's fields. One
+    process drives one device; `train.batch_size` is the global batch.
+    n_devices: N > 1 trains in N processes of one host, started by the
+    launcher, rank r on cuda:r (on the CPU for --GPU -1); None or 1, one
+    process. multihost: this process is rank `process_id` of
+    `num_processes`, meeting at `coordinator` ("host:port", rank 0 listens;
+    or "file:///path", a FileStore) on cuda:(process_id mod the host's
+    cards). data_axis: the JAX mesh's axis name, kept for the config
+    files."""
+    n_devices: Optional[int] = None
     data_axis: str = "data"
-    # multi-host SPMD (pod slices): join a jax.distributed job and mesh
-    # over ALL global devices; each process feeds its local batch shard.
     multihost: bool = False
-    coordinator: Optional[str] = None    # None = auto-detect on TPU pods
+    coordinator: Optional[str] = None
     num_processes: Optional[int] = None
     process_id: Optional[int] = None
 

@@ -65,6 +65,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from romp_tpu_torch.parallel.mesh import global_sums, group_size
+
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # torch's convention: new = (1 - m) * old + m * batch
 
@@ -299,16 +301,28 @@ class _FoldedBf16Norm(_Bf16Cast):
 
     def _train_forward(self, x: torch.Tensor) -> torch.Tensor:
         """JAX's train-mode batch_norm (`layers.py:137-175`): statistics and
-        output in f32 (in f64 for an f64 net)."""
-        updates, name = self.bn_updates
+        output in f32 (in f64 for an f64 net). With a group (a data-parallel
+        step), the statistics are the global batch's: sum(x) and sum(x^2)
+        summed over the ranks in one collective, with autograd through it;
+        the count is W times the local one (`shard_batch` gives every rank
+        the same number of rows). A recomputed forward (remat) issues the
+        collective again, in the same order on every rank."""
+        updates, name, group = self.bn_updates
         axes = [0, *range(2, x.dim())]
         x32 = at_least_f32(x)
-        mean = x32.mean(axes)
-        var = (x32 * x32).mean(axes) - mean * mean    # biased
+        n = x.numel() // x.shape[1]
+        if group is None:
+            mean = x32.mean(axes)
+            var = (x32 * x32).mean(axes) - mean * mean    # biased
+        else:
+            n *= group_size(group)
+            s1, s2 = global_sums(x32.sum(axes), (x32 * x32).sum(axes),
+                                 group=group)
+            mean = s1 / n
+            var = s2 / n - mean * mean
         key = f"{name}.running_mean"
         if key not in updates:   # a recomputed forward records nothing
             with torch.no_grad():
-                n = x.numel() // x.shape[1]
                 unbiased = var * (n / max(n - 1, 1))
                 updates[key] = ((1 - BN_MOMENTUM) * self.running_mean
                                 + BN_MOMENTUM * mean)
@@ -322,16 +336,17 @@ class _FoldedBf16Norm(_Bf16Cast):
 
 
 def record_bn_updates(net: nn.Module, on: bool = True,
-                      into: Optional[Dict[str, torch.Tensor]] = None
-                      ) -> Dict[str, torch.Tensor]:
+                      into: Optional[Dict[str, torch.Tensor]] = None,
+                      group=None) -> Dict[str, torch.Tensor]:
     """Make every BatchNorm of `net` record its train-mode running-statistics
     update, keyed by state-dict name, into the returned dict (`into`, or a
     fresh one) instead of updating in place; `on=False` detaches them again
-    (torch's own train-mode BatchNorm)."""
+    (torch's own train-mode BatchNorm). With `group` (a torch.distributed
+    group), the statistics are those of the batch over all its ranks."""
     updates: Dict[str, torch.Tensor] = {} if into is None else into
     for name, m in net.named_modules():
         if isinstance(m, _FoldedBf16Norm):
-            m.bn_updates = (updates, name) if on else None
+            m.bn_updates = (updates, name, group) if on else None
     return updates
 
 

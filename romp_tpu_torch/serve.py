@@ -1,5 +1,5 @@
 """Serving front end: micro-batched ROMP / BEV inference over TCP, on one
-GPU (counterpart of `romp_tpu/serve.py`).
+GPU or several (counterpart of `romp_tpu/serve.py`).
 
 - **Micro-batching** (`MicroBatcher`): concurrent requests are coalesced
   into one device batch, padded to a small set of batch sizes (1, 2, 4, ...
@@ -25,13 +25,17 @@ process-wide torch flags; `inference_mode` is per thread). `precompile`
 runs the same path on the caller's thread before the port opens. The crowd
 route submits its windows through the batcher from the connection thread.
 
-Not carried over: the JAX server's `mesh=` / `--mesh_devices` (SPMD serving
-over a TPU slice's data axis); on one GPU they mean nothing.
+- **Replicas** (`mesh=`, `--mesh_devices N`; the JAX server's SPMD
+  serving over a mesh's data axis): one copy of the weights on each device
+  of `parallel/mesh.py::make_mesh`; every padded batch size is a multiple
+  of the replica count, each padded batch is split evenly, each shard runs
+  on its replica's device (issued in turn from the dispatcher thread, so
+  the cards overlap), and the results are joined in order.
 
 Usage:
     python -m romp_tpu_torch.serve --port 8011 [--GPU 0] [--model bev]
         [--model_path ... --smpl_path ...] [--act_dtype bfloat16]
-        [--precompile]
+        [--precompile] [--mesh_devices N]
     # --GPU -1 serves on the CPU; without a card the default --GPU 0 raises
     from romp_tpu_torch.serve import InferenceClient
     res = InferenceClient("127.0.0.1", 8011).infer(bgr_image)
@@ -49,7 +53,7 @@ import struct
 import threading
 import time
 from concurrent.futures import Future
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -230,14 +234,21 @@ class _Handle:
         self.event = event
 
 
-def _device_service(infer: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
-                    device: torch.device, flags: Callable, max_batch: int,
+def _device_service(replicas: List[Tuple[Callable[[torch.Tensor], Dict[
+        str, torch.Tensor]], torch.device]], flags: Callable, max_batch: int,
                     window_ms: float, input_size: int) -> MicroBatcher:
-    """A MicroBatcher whose run_batch / fetch drive `infer` (images on the
-    device -> dict of device tensors) on `device` under `flags()` (the
-    pipeline's precision flags)."""
+    """A MicroBatcher whose run_batch / fetch drive the replicas' `infer`
+    (images on the device -> dict of device tensors), each on its device,
+    under `flags()` (the pipeline's precision flags): each padded batch is
+    split evenly over the replicas, in order, and their results are joined
+    in the same order."""
+    n = len(replicas)
+    if max_batch % n:
+        raise ValueError(f"max_batch {max_batch} must be a multiple of the "
+                         f"{n} replicas")
 
-    def run_batch(images: np.ndarray) -> _Handle:
+    def run_shard(infer, device: torch.device, images: np.ndarray
+                  ) -> _Handle:
         if device.type != "cuda":
             with torch.inference_mode(), flags():
                 return _Handle(None, infer(torch.from_numpy(images)), None)
@@ -256,19 +267,33 @@ def _device_service(infer: Callable[[torch.Tensor], Dict[str, torch.Tensor]],
             event.record()
         return _Handle(staging, host, event)
 
-    def fetch(handle: _Handle) -> Dict[str, np.ndarray]:
+    def run_batch(images: np.ndarray) -> List[_Handle]:
+        return [run_shard(infer, device, shard) for (infer, device), shard
+                in zip(replicas, np.split(images, n))]
+
+    def fetch_shard(handle: _Handle) -> Dict[str, np.ndarray]:
         if handle.event is not None:
             handle.event.synchronize()
         return {k: v.numpy() for k, v in handle.outputs.items()}
 
+    def fetch(handles: List[_Handle]) -> Dict[str, np.ndarray]:
+        if n == 1:
+            return fetch_shard(handles[0])
+        outs = [fetch_shard(h) for h in handles]
+        return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
     return MicroBatcher(run_batch, fetch, max_batch=max_batch,
-                        window_ms=window_ms, input_size=input_size)
+                        window_ms=window_ms, input_size=input_size,
+                        batch_multiple=n)
 
 
 def make_romp_service(params, smpl, cfg, max_batch: int = 8,
-                      window_ms: float = 2.0, device="cuda") -> MicroBatcher:
+                      window_ms: float = 2.0, device="cuda",
+                      mesh: Optional[List] = None) -> MicroBatcher:
     """MicroBatcher over `RompPipeline` (romp_pipeline.romp_inference) on
-    `device` (the card unless the caller passes another).
+    `device` (the card unless the caller passes another), or with `mesh`
+    (a list of devices, `parallel/mesh.py::make_mesh`) one pipeline on each,
+    `max_batch` a multiple of their number.
 
     params: a torch-layout state dict; smpl: a SmplModel; cfg: RompConfig.
     The service expects preprocessed (S, S, 3) uint8 RGB inputs (the square
@@ -279,28 +304,32 @@ def make_romp_service(params, smpl, cfg, max_batch: int = 8,
         RompPipeline, precision_flags, romp_inference,
     )
 
-    pipe = RompPipeline(params, smpl, cfg, device)
+    pipes = [RompPipeline(params, smpl, cfg, d) for d in mesh or [device]]
     return _device_service(
-        lambda images: romp_inference(pipe.net, pipe.smpl, images, pipe.cfg),
-        pipe.device, lambda: precision_flags(pipe.cfg), max_batch, window_ms,
+        [(lambda images, p=p: romp_inference(p.net, p.smpl, images, p.cfg),
+          p.device) for p in pipes],
+        lambda: precision_flags(pipes[0].cfg), max_batch, window_ms,
         cfg.input_size)
 
 
 def make_bev_service(params, smpl_adult, smpl_baby, cfg, max_batch: int = 8,
-                     window_ms: float = 2.0, device="cuda") -> MicroBatcher:
+                     window_ms: float = 2.0, device="cuda",
+                     mesh: Optional[List] = None) -> MicroBatcher:
     """MicroBatcher over `BevPipeline` (bev_pipeline.bev_inference): all-age
-    SMPL+A serving with 3D (x, y, depth) localization. Same batching as
-    make_romp_service."""
+    SMPL+A serving with 3D (x, y, depth) localization. Same batching and
+    replicas as make_romp_service."""
     from romp_tpu_torch.pipeline.bev_pipeline import (
         BevPipeline, bev_inference,
     )
     from romp_tpu_torch.pipeline.romp_pipeline import precision_flags
 
-    pipe = BevPipeline(params, smpl_adult, smpl_baby, cfg, device)
+    pipes = [BevPipeline(params, smpl_adult, smpl_baby, cfg, d)
+             for d in mesh or [device]]
     return _device_service(
-        lambda images: bev_inference(pipe.net, pipe.smpl_adult,
-                                     pipe.smpl_baby, images, pipe.cfg),
-        pipe.device, lambda: precision_flags(pipe.cfg), max_batch, window_ms,
+        [(lambda images, p=p: bev_inference(p.net, p.smpl_adult, p.smpl_baby,
+                                            images, p.cfg), p.device)
+         for p in pipes],
+        lambda: precision_flags(pipes[0].cfg), max_batch, window_ms,
         cfg.input_size)
 
 
@@ -506,8 +535,8 @@ class InferenceClient:
 
 
 def serve_args(input_args=None) -> argparse.Namespace:
-    """The server's flags: the JAX server's, less --mesh_devices, plus the
-    port's --GPU (0 = cuda:0, the default; -1 = the CPU)."""
+    """The server's flags: the JAX server's, plus the port's --GPU (0 =
+    cuda:0, the default; -1 = the CPU)."""
     from romp_tpu_torch.cli.common import DEFAULT_HOME
 
     ap = argparse.ArgumentParser("romp_tpu_torch.serve")
@@ -532,6 +561,11 @@ def serve_args(input_args=None) -> argparse.Namespace:
                     help="bfloat16: bf16 activations between layers (the "
                          "low-memory inference mode; needs compute_dtype "
                          "bfloat16)")
+    ap.add_argument("--mesh_devices", type=int, default=0,
+                    help="serve over N replicas of the weights on cuda:0.."
+                         "N-1 (N CPU replicas with --GPU -1), each padded "
+                         "batch split evenly over them (0 = one device); "
+                         "max_batch must be a multiple of N")
     ap.add_argument("--precompile", action="store_true",
                     help="warm up every padded batch size before opening "
                          "the port (no live request pays the kernel build)")
@@ -550,9 +584,15 @@ def build_server(args: argparse.Namespace) -> InferenceServer:
         DEFAULT_HOME, device_from_flag, load_checkpoint_flexible,
         load_smpl_assets_flexible,
     )
+    from romp_tpu_torch.parallel.mesh import make_mesh
     from romp_tpu_torch.smpl.body_model import SmplModel
 
     device = device_from_flag(args.GPU)
+    mesh = None
+    if args.mesh_devices > 0:
+        mesh = make_mesh(args.mesh_devices,
+                         [device] * args.mesh_devices
+                         if device.type == "cpu" else None)
     crowd_settings = None
     if args.model == "bev":
         from romp_tpu_torch.cli.bev import LONG_CONF_DICT
@@ -578,7 +618,7 @@ def build_server(args: argparse.Namespace) -> InferenceServer:
         batcher = make_bev_service(
             params, SmplModel(adult), SmplModel(baby), cfg,
             max_batch=args.max_batch, window_ms=args.window_ms,
-            device=device)
+            device=device, mesh=mesh)
     else:
         from romp_tpu_torch.models.romp import init_romp_params
         from romp_tpu_torch.pipeline.romp_pipeline import RompConfig
@@ -595,7 +635,7 @@ def build_server(args: argparse.Namespace) -> InferenceServer:
                          fetch_slots=args.fetch_person)
         batcher = make_romp_service(
             params, SmplModel(assets), cfg, max_batch=args.max_batch,
-            window_ms=args.window_ms, device=device)
+            window_ms=args.window_ms, device=device, mesh=mesh)
     if args.precompile:
         print(f"precompiling batch sizes {batcher.sizes} ...", flush=True)
         batcher.precompile()

@@ -267,6 +267,7 @@ class ClipDataset:
 
 def clip_batch_iterator(ds: ClipDataset, feature_fn, flow_fn=None,
                         batch_size: int = 1, seed: int = 0, device="cpu",
+                        rows: Optional[slice] = None,
                         ) -> Iterator[Dict[str, torch.Tensor]]:
     """Assemble TRACE train batches (the `trace_train_step` schema, on
     `device`): the frozen backbone's features with the carry frame, flows,
@@ -275,10 +276,15 @@ def clip_batch_iterator(ds: ClipDataset, feature_fn, flow_fn=None,
     feature_fn: (T, S, S, 3) f32 frames on `device` -> (T, 32, S/4, S/4)
     features (`trace_extract_features`), run under no_grad. flow_fn:
     (prev, cur) frames -> (T, S/4, S/4, 2) flows (`make_trace_flow_fn`), or
-    None for zero flow."""
+    None for zero flow. rows: the clips of each batch to keep (a
+    data-parallel rank's), after all `batch_size` are drawn, so that every
+    rank follows the same random stream; only those are put on `device`
+    and through `feature_fn` and `flow_fn`."""
     rng = np.random.RandomState(seed)
     while True:
         clips = [ds.sample_clip(rng) for _ in range(batch_size)]
+        if rows is not None:
+            clips = clips[rows]
         feats, flows = [], []
         for c in clips:
             fr = torch.from_numpy(c["frames"]).to(device)

@@ -18,6 +18,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from romp_tpu_torch.parallel.mesh import global_ratio, global_sums
+
 
 def generate_joint_heatmaps(kp2d: torch.Tensor, vis: torch.Tensor,
                             map_size: int, sigma: float = 2.0
@@ -36,17 +38,22 @@ def generate_joint_heatmaps(kp2d: torch.Tensor, vis: torch.Tensor,
     return g.amax(dim=1).permute(0, 2, 3, 1)
 
 
-def heatmap_mse_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+def heatmap_mse_loss(pred: torch.Tensor, gt: torch.Tensor,
+                     group=None) -> torch.Tensor:
     """Channel-masked MSE (`maps_loss.py:86-99`): only the supervised joints
-    (GT channels that are not empty) count. pred, gt (B, S, S, J)."""
+    (GT channels that are not empty) count, over the images of all ranks of
+    `group`. pred, gt (B, S, S, J)."""
     chan_mask = (gt.sum(dim=(1, 2)) > 0).to(pred.dtype)       # (B, J)
     per_chan = torch.mean((pred - gt) ** 2, dim=(1, 2))
-    return torch.sum(per_chan * chan_mask) / (torch.sum(chan_mask) + 1e-6)
+    return global_ratio(torch.sum(per_chan * chan_mask), torch.sum(chan_mask),
+                        1e-6, group)
 
 
 def ae_loss(tags: torch.Tensor, kp2d: torch.Tensor, vis: torch.Tensor,
-            person_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Associative-embedding pull / push (`maps_loss.py:101-160`).
+            person_mask: torch.Tensor, group=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Associative-embedding pull / push (`maps_loss.py:101-160`), each a
+    mean over the joints or pairs of all ranks of `group`.
 
     tags (B, S, S, J) predicted embedding maps; kp2d (B, P, J, 2) in
     [-1, 1]; vis (B, P, J); person_mask (B, P). Returns (pull, push)."""
@@ -61,15 +68,18 @@ def ae_loss(tags: torch.Tensor, kp2d: torch.Tensor, vis: torch.Tensor,
     w = vis.to(tags.dtype) * person_mask[..., None]
     nj = torch.sum(w, dim=-1)                                  # (B, P)
     mean_tag = torch.sum(picked * w, dim=-1) / torch.clamp(nj, min=1.0)
-    pull = torch.sum(((picked - mean_tag[..., None]) ** 2) * w) / (
-        torch.sum(w) + 1e-6)
+    pull_num, pull_den = torch.sum(((picked - mean_tag[..., None]) ** 2)
+                                   * w), torch.sum(w)
 
     pv = (person_mask & (nj > 0)).to(tags.dtype)               # (B, P)
     off_diag = 1.0 - torch.eye(P, dtype=tags.dtype, device=tags.device)
     pair = pv[:, :, None] * pv[:, None, :] * off_diag[None]
     diff = mean_tag[:, :, None] - mean_tag[:, None, :]
-    push = torch.sum(torch.exp(-diff ** 2) * pair) / (torch.sum(pair) + 1e-6)
-    return pull, push
+    push_num, push_den = torch.sum(torch.exp(-diff ** 2) * pair), torch.sum(
+        pair)
+    pull_num, pull_den, push_num, push_den = global_sums(
+        pull_num, pull_den, push_num, push_den, group=group)
+    return pull_num / (pull_den + 1e-6), push_num / (push_den + 1e-6)
 
 
 def parse_joint_heatmaps(heat: torch.Tensor, tags: torch.Tensor,

@@ -14,6 +14,22 @@ when that card does not exist; `--GPU -1` trains on the CPU.
 `model.version=bev` is refused, as the JAX launcher has no BEV branch:
 BEV trains through `train/bev_train_step.py`'s step functions. 2D-pose
 pretraining has its own launcher, `romp_tpu_torch.train.pretrain`.
+
+Data parallel (`parallel/mesh.py`; `train.batch_size` is the global
+batch, which the ranks split evenly):
+    # N processes on this host, rank r on cuda:r (--GPU -1: on the CPU)
+    python -m romp_tpu_torch.train.launch --data_root data mesh.n_devices=N
+    # one rank of a job over several hosts, on every host
+    python -m romp_tpu_torch.train.launch --data_root data \
+        mesh.multihost=true mesh.coordinator=HOST0:PORT \
+        mesh.num_processes=W mesh.process_id=R
+A rank of a multihost job trains on cuda:(R mod the host's cards). Every
+rank draws the same global batches from the same seed and keeps its rows
+(TRACE: whole clips; only its own clips go through the frozen backbone and
+RAFT). With several `train.num_workers`, each rank's loader interleaves
+its workers' batches in its own order, so the ranks split different
+global batches of the same stream: each sample is still used once. Only
+rank 0 writes the logs and checkpoints.
 """
 from __future__ import annotations
 
@@ -66,6 +82,18 @@ def build_datasets(cfg):
     return MixedDataset(datasets, probs or None)
 
 
+def rank_device(cfg, gpu: int):
+    """This process's device: a rank of a multihost job takes
+    `local_device(mesh.process_id)` (the CPU for `--GPU -1`), one process
+    the card `--GPU` names."""
+    from romp_tpu_torch.cli.common import device_from_flag
+    from romp_tpu_torch.parallel.mesh import local_device
+
+    if cfg.mesh.multihost:
+        return local_device(cfg.mesh.process_id, cpu=gpu < 0)
+    return device_from_flag(gpu)
+
+
 def trace_train_config(cfg):
     """The TRACE step's TraceTrainConfig from the config tree (as
     `launch.py:147-157`)."""
@@ -87,8 +115,10 @@ def trace_train_config(cfg):
 
 def run_trace_training(cfg, args, device) -> int:
     """TRACE video training (`launch.py:47-211`): the frozen image backbone
-    and the trainable temporal head, on `device`. Consumes video packs
-    <data_root>/<name>.npz written by `video_dataset.save_video_pack`."""
+    and the trainable temporal head, on `device` (one rank of a
+    data-parallel job under `cfg.mesh`: its clips of each global batch).
+    Consumes video packs <data_root>/<name>.npz written by
+    `video_dataset.save_video_pack`."""
     import json
     import os
     import time
@@ -101,15 +131,23 @@ def run_trace_training(cfg, args, device) -> int:
         TraceNet, backbone_features, init_trace_params,
     )
     from romp_tpu_torch.models.layers import opts_from_names
+    from romp_tpu_torch.parallel.mesh import (
+        group_size, initialize_from_config, process_index,
+    )
     from romp_tpu_torch.pipeline.romp_pipeline import precision_flags
     from romp_tpu_torch.train.data.video_dataset import (
         ClipDataset, clip_batch_iterator, load_video_pack,
+    )
+    from romp_tpu_torch.train.train_step import (
+        check_train_state, replicate_train_state,
     )
     from romp_tpu_torch.train.trace_train_step import (
         trace_init_train_state, trace_train_step,
     )
     from romp_tpu_torch.train.trainer import save_train_state
 
+    group = initialize_from_config(cfg.mesh, device)
+    is_main = process_index() == 0
     tc = cfg.trace
     seqs = []
     for name in cfg.data.datasets:
@@ -173,6 +211,14 @@ def run_trace_training(cfg, args, device) -> int:
     head.load_state_dict(init_trace_params(
         gen, clip_length=tc.clip_length, map_size=map_size, backbone=None))
     state = trace_init_train_state(head.to(device), ttcfg)
+    replicate_train_state(state, group)
+    # this rank's clips of each global batch
+    per_rank = cfg.train.batch_size // group_size(group)
+    if per_rank * group_size(group) != cfg.train.batch_size:
+        raise ValueError(f"train.batch_size {cfg.train.batch_size} does not "
+                         f"split over {group_size(group)} ranks")
+    rows = slice(process_index() * per_rank,
+                 (process_index() + 1) * per_rank)
 
     # packed metrics, read one step late (as Trainer.fit): one copy to the
     # host a step, and the device does not wait for the host's logging
@@ -184,7 +230,7 @@ def run_trace_training(cfg, args, device) -> int:
     def make_iter(seed):
         return clip_batch_iterator(ds, feature_fn, flow_fn=flow_fn,
                                    batch_size=cfg.train.batch_size,
-                                   seed=seed, device=device)
+                                   seed=seed, device=device, rows=rows)
 
     last = {}
     step0 = int(state.step)
@@ -194,7 +240,7 @@ def run_trace_training(cfg, args, device) -> int:
     def consume(packed, step, i):
         nonlocal last
         last = dict(zip(names, packed.cpu().tolist()))
-        if step % cfg.train.log_every == 0:
+        if step % cfg.train.log_every == 0 and is_main:
             rec = {"step": step, **last,
                    "steps_per_sec": round((i + 1) / (time.time() - t0), 3)}
             with open(log_path, "a") as f:
@@ -217,7 +263,7 @@ def run_trace_training(cfg, args, device) -> int:
         try:
             # islice: the loader builds no batch beyond max_steps
             for i, batch in enumerate(itertools.islice(it, args.max_steps)):
-                _, m = trace_train_step(state, batch, ttcfg)
+                _, m = trace_train_step(state, batch, ttcfg, group=group)
                 if names is None:
                     names = tuple(sorted(m))
                 packed = torch.stack([m[k].float() for k in names])
@@ -230,8 +276,10 @@ def run_trace_training(cfg, args, device) -> int:
         finally:
             if hasattr(it, "close"):
                 it.close()
-    save_train_state(osp.join(cfg.train.checkpoint_dir, "trace_last.npz"),
-                     state)
+    check_train_state(state, group)
+    if is_main:
+        save_train_state(osp.join(cfg.train.checkpoint_dir,
+                                  "trace_last.npz"), state)
     print(f"trace training finished: {last}")
     return 0
 
@@ -246,22 +294,35 @@ def main(input_args=None) -> int:
                         help="card index; -1 trains on the CPU")
     parser.add_argument("overrides", nargs="*",
                         help="dotted config overrides, e.g. train.lr=1e-4")
-    args = parser.parse_args(input_args)
+    argv = list(sys.argv[1:] if input_args is None else input_args)
+    args = parser.parse_intermixed_args(argv)
 
-    from romp_tpu_torch.cli.common import (
-        device_from_flag, load_smpl_assets_flexible,
-    )
     from romp_tpu_torch.config import dump_config, load_config
-    from romp_tpu_torch.smpl.body_model import SmplModel
-    from romp_tpu_torch.train.data.dataset import batch_iterator
-    from romp_tpu_torch.train.trainer import Trainer
+    from romp_tpu_torch.parallel.mesh import finalize_distributed, launch_ranks
 
     cfg = load_config(args.config, overrides=args.overrides)
     if cfg.model.version not in ("romp", "trace"):
         raise NotImplementedError(BEV_NOT_PORTED.format(cfg.model.version))
+    rc = launch_ranks(cfg.mesh, "romp_tpu_torch.train.launch", argv)
+    if rc is not None:
+        return rc
     cfg.data_root = args.data_root
-    device = device_from_flag(args.GPU)
-    dump_config(cfg, f"{cfg.train.checkpoint_dir}/active_config.yml")
+    device = rank_device(cfg, args.GPU)
+    if not cfg.mesh.process_id:
+        dump_config(cfg, f"{cfg.train.checkpoint_dir}/active_config.yml")
+    try:
+        return _train(cfg, args, device)
+    finally:
+        if cfg.mesh.multihost:
+            finalize_distributed()
+
+
+def _train(cfg, args, device) -> int:
+    """ROMP through the Trainer, or TRACE's video training, on `device`."""
+    from romp_tpu_torch.cli.common import load_smpl_assets_flexible
+    from romp_tpu_torch.smpl.body_model import SmplModel
+    from romp_tpu_torch.train.data.dataset import batch_iterator
+    from romp_tpu_torch.train.trainer import Trainer
 
     if cfg.model.version == "trace":
         return run_trace_training(cfg, args, device)

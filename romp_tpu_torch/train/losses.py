@@ -8,7 +8,9 @@ hip-aligned MPJPE and Procrustes-aligned PA-MPJPE
 `romp/lib/evaluation/evaluation_matrix.py:252`), SMPL parameter losses
 (`romp/lib/loss_funcs/params_loss.py:22`, `calc_loss.py:115-150`). Every
 loss takes a (B*K,) validity weight so that shapes stay fixed, and returns a
-scalar weighted mean.
+scalar weighted mean. With `group` (a data-parallel step), the mean is
+over the global batch: numerator and denominator are summed over the ranks
+(`parallel/mesh.py`), so every rank computes the same value.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from romp_tpu_torch.ops.rotations import axis_angle_to_matrix
+from romp_tpu_torch.parallel.mesh import global_ratio, global_sum, group_size
 
 # PCA-variance weighting of betas (`calc_loss.py:34`)
 SHAPE_PCA_WEIGHT = (1.0, 0.64, 0.32, 0.32, 0.16, 0.16, 0.16, 0.16, 0.16, 0.16)
@@ -32,9 +35,9 @@ def _pca_weight(device, dtype) -> torch.Tensor:
     return torch.tensor(SHAPE_PCA_WEIGHT, dtype=dtype, device=device)
 
 
-def _wmean(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
-           ) -> torch.Tensor:
-    return torch.sum(x * w) / (torch.sum(w) + eps)
+def _wmean(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+           group=None) -> torch.Tensor:
+    return global_ratio(torch.sum(x * w), torch.sum(w), eps, group)
 
 
 def _safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -42,9 +45,11 @@ def _safe_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=dim) + 1e-12)
 
 
-def focal_heatmap_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+def focal_heatmap_loss(pred: torch.Tensor, gt: torch.Tensor,
+                       group=None) -> torch.Tensor:
     """CenterNet focal loss over every non-batch axis, normalized by each
-    image's positive count."""
+    image's positive count, averaged over the images (of all ranks of
+    `group`: each holds as many)."""
     pred = pred.reshape(pred.shape[0], -1)
     gt = gt.reshape(gt.shape[0], -1)
     pos = (gt == 1.0).to(pred.dtype)
@@ -57,20 +62,23 @@ def focal_heatmap_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     per_img = torch.where(num_pos > 0,
                           -(pos_loss + neg_loss) / (num_pos + 1e-4),
                           -neg_loss)
-    return per_img.mean()
+    if group is None:
+        return per_img.mean()
+    return global_sum(per_img.sum(), group) / (
+        per_img.shape[0] * group_size(group))
 
 
 def kp2d_l2_loss(gt: torch.Tensor, pred: torch.Tensor,
-                 person_w: torch.Tensor) -> torch.Tensor:
+                 person_w: torch.Tensor, group=None) -> torch.Tensor:
     """gt, pred (N, J, 2) in [-1, 1], invisible joints of gt < -1.99."""
     vis = (gt > -1.99).all(dim=-1).to(pred.dtype)
     d = _safe_norm(pred - gt)
     per_person = torch.sum(d * vis, dim=-1) / (torch.sum(vis, dim=-1) + 1e-6)
-    return _wmean(per_person, person_w)
+    return _wmean(per_person, person_w, group=group)
 
 
 def mpjpe_loss(gt: torch.Tensor, pred: torch.Tensor,
-               person_w: torch.Tensor) -> torch.Tensor:
+               person_w: torch.Tensor, group=None) -> torch.Tensor:
     """Hip-midpoint-aligned mean per-joint error; gt's invalid joints are
     exactly -2."""
     def _align(x):
@@ -79,7 +87,7 @@ def mpjpe_loss(gt: torch.Tensor, pred: torch.Tensor,
     valid_j = (gt != -2.0).any(dim=-1).to(pred.dtype)
     d = _safe_norm(_align(pred) - _align(gt))
     per_person = torch.sum(d * valid_j, -1) / (torch.sum(valid_j, -1) + 1e-6)
-    return _wmean(per_person, person_w)
+    return _wmean(per_person, person_w, group=group)
 
 
 def _det3(m: torch.Tensor) -> torch.Tensor:
@@ -125,7 +133,7 @@ def procrustes_align(gt: torch.Tensor, pred: torch.Tensor,
 
 
 def pampjpe_loss(gt: torch.Tensor, pred: torch.Tensor,
-                 person_w: torch.Tensor) -> torch.Tensor:
+                 person_w: torch.Tensor, group=None) -> torch.Tensor:
     """Procrustes-aligned MPJPE; invalid joints (gt == -2) are out of the
     solve and the mean, persons with fewer than 3 valid joints out of the
     batch mean."""
@@ -134,29 +142,30 @@ def pampjpe_loss(gt: torch.Tensor, pred: torch.Tensor,
     d = _safe_norm(aligned - gt)
     per_person = torch.sum(d * valid_j, -1) / (torch.sum(valid_j, -1) + 1e-6)
     person_w = person_w * (torch.sum(valid_j, -1) >= 3).to(pred.dtype)
-    return _wmean(per_person, person_w)
+    return _wmean(per_person, person_w, group=group)
 
 
 def pose_l2_loss(gt_aa: torch.Tensor, pred_aa: torch.Tensor,
-                 person_w: torch.Tensor) -> torch.Tensor:
+                 person_w: torch.Tensor, group=None) -> torch.Tensor:
     """L2 between the rotation matrices of axis-angle poses (N, J*3)."""
     N = gt_aa.shape[0]
     Rg = axis_angle_to_matrix(gt_aa.reshape(N, -1, 3))
     Rp = axis_angle_to_matrix(pred_aa.reshape(N, -1, 3))
     d = torch.sqrt(torch.sum((Rg - Rp) ** 2, dim=(-2, -1)) + 1e-12).mean(-1)
-    return _wmean(d, person_w)
+    return _wmean(d, person_w, group=group)
 
 
 def shape_loss(gt_betas: Optional[torch.Tensor], pred_betas: torch.Tensor,
                person_w: torch.Tensor,
-               has_gt: Optional[torch.Tensor] = None) -> torch.Tensor:
+               has_gt: Optional[torch.Tensor] = None,
+               group=None) -> torch.Tensor:
     """PCA-weighted shape supervision, and an L2 regularizer for persons
     without betas (`calc_loss.py:136-143`); both divided by 20."""
     reg = torch.mean(pred_betas[:, :10] ** 2, dim=-1) / 20.0
     if gt_betas is None:
-        return _wmean(reg, person_w)
+        return _wmean(reg, person_w, group=group)
     has_gt = torch.ones_like(person_w) if has_gt is None else has_gt
     pca = _pca_weight(pred_betas.device, pred_betas.dtype)
     sup = torch.linalg.norm((gt_betas[:, :10] - pred_betas[:, :10]) * pca,
                             dim=-1) / 20.0
-    return _wmean(torch.where(has_gt > 0, sup, reg), person_w)
+    return _wmean(torch.where(has_gt > 0, sup, reg), person_w, group=group)

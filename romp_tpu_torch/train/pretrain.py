@@ -2,7 +2,10 @@
 launcher (counterpart of `romp_tpu/train/pretrain.py`).
 
     python -m romp_tpu_torch.train.pretrain --config configs/pretrain.yml \
-        [--data_root data] [--max_steps N] [--GPU N]
+        [--data_root data] [--max_steps N] [--GPU N] [mesh.n_devices=N]
+
+(`mesh.n_devices` and `mesh.multihost` start or join data-parallel ranks as
+for `romp_tpu_torch.train.launch`.)
 
 The reference's pretrain entry (`romp/pretrain.py:1-208`, launched by
 `scripts/pretrain.sh` with `configs/pretrain.yml`) trains the backbone
@@ -141,12 +144,13 @@ def init_pretrain_state(net: PretrainNet, cfg: PretrainConfig) -> TrainState:
 
 
 def pretrain_losses(net: PretrainNet, batch: Dict[str, torch.Tensor],
-                    cfg: PretrainConfig
+                    cfg: PretrainConfig, group=None
                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, metrics) (`pretrain.py:111-145`). batch: image (B, S, S, 3)
     in [0, 255]; kp2d_gt (B, P, J, 2) in [-1, 1], invalid = -2;
     person_centers (B, P, 2); person_bbox_hw (B, P, 2); person_mask (B, P).
-    The maps are cast to f32 (kept f64 on an f64 net) before the losses."""
+    The maps are cast to f32 (kept f64 on an f64 net) before the losses.
+    With `group`, each loss is the global batch's mean."""
     heat, tags, center = net(batch["image"],
                              opts_from_names(cfg.compute_dtype))
     heat, tags, center = (at_least_f32(t) for t in (heat, tags, center))
@@ -160,26 +164,29 @@ def pretrain_losses(net: PretrainNet, batch: Dict[str, torch.Tensor],
         radii = person_radius(batch["person_bbox_hw"], S)
         center_gt = generate_centermap(batch["person_centers"], radii, mask,
                                        S)
-    pull, push = ae_loss(tags, kp2d, vis, mask)
+    pull, push = ae_loss(tags, kp2d, vis, mask, group)
     loss_dict = {
-        "heatmap": cfg.heatmap_weight * heatmap_mse_loss(heat, heat_gt),
+        "heatmap": cfg.heatmap_weight * heatmap_mse_loss(heat, heat_gt,
+                                                         group),
         "AE": cfg.ae_weight * (pull + push),
         "centermap": cfg.centermap_weight * losses.focal_heatmap_loss(
-            center[..., 0], center_gt),
+            center[..., 0], center_gt, group),
     }
     total = sum(loss_dict.values())
     return total, {**loss_dict, "total": total}
 
 
 def pretrain_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                  cfg: PretrainConfig
+                  cfg: PretrainConfig, group=None
                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place (`pretrain.py:148-163`). Returns the state
     and the metrics (0-dim device tensors: the losses, total and
-    grads_finite). The BatchNorm statistics follow the step's skip rule."""
+    grads_finite). The BatchNorm statistics follow the step's skip rule.
+    With `group`, `batch` is this rank's rows of the global batch, and the
+    step is the global batch's on every rank."""
     finite, metrics = run_step(
-        state, lambda net: pretrain_losses(net, batch, cfg), cfg,
-        gate_bn=True)
+        state, lambda net: pretrain_losses(net, batch, cfg, group), cfg,
+        gate_bn=True, group=group)
     metrics["grads_finite"] = finite.to(metrics["total"].dtype)
     return state, metrics
 
@@ -216,12 +223,14 @@ def pretrain_config(cfg) -> PretrainConfig:
 
 
 def main(input_args=None) -> int:
-    """The pretrain launcher (`pretrain.py:182-268`, one device: the mesh is
-    not ported): the same annotation packs as the trainer (2D-only
-    datasets suffice; the 3D fields are not read), `--GPU N` (default 0)
-    trains on `cuda:N`, `--GPU -1` on the CPU. Writes pretrain_log.jsonl
-    (each step's metrics, read one step late) and pretrain_last.npz (the
-    trainer's checkpoint format) under train.checkpoint_dir."""
+    """The pretrain launcher (`pretrain.py:182-268`): the same annotation
+    packs as the trainer (2D-only datasets suffice; the 3D fields are not
+    read), `--GPU N` (default 0) trains on `cuda:N`, `--GPU -1` on the CPU;
+    `mesh.n_devices=N` trains in N processes of this host, each on its rows
+    of the global batch (`parallel/mesh.py`). Rank 0 writes
+    pretrain_log.jsonl (each step's metrics, read one step late) and
+    pretrain_last.npz (the trainer's checkpoint format) under
+    train.checkpoint_dir."""
     import argparse
     import json
     import os
@@ -235,25 +244,39 @@ def main(input_args=None) -> int:
     parser.add_argument("--GPU", type=int, default=0,
                         help="card index; -1 trains on the CPU")
     parser.add_argument("overrides", nargs="*")
-    args = parser.parse_args(input_args)
+    argv = list(sys.argv[1:] if input_args is None else input_args)
+    args = parser.parse_intermixed_args(argv)
 
-    from romp_tpu_torch.cli.common import device_from_flag
     from romp_tpu_torch.config import dump_config, load_config
+    from romp_tpu_torch.parallel.mesh import (
+        finalize_distributed, initialize_from_config, launch_ranks,
+        process_index, shard_batch,
+    )
     from romp_tpu_torch.train.data.dataset import batch_iterator
-    from romp_tpu_torch.train.launch import build_datasets
+    from romp_tpu_torch.train.launch import build_datasets, rank_device
+    from romp_tpu_torch.train.train_step import (
+        check_train_state, replicate_train_state,
+    )
     from romp_tpu_torch.train.trainer import batch_to_device, save_train_state
 
     cfg = load_config(args.config, overrides=args.overrides)
+    rc = launch_ranks(cfg.mesh, "romp_tpu_torch.train.pretrain", argv)
+    if rc is not None:
+        return rc
     cfg.data_root = args.data_root
-    device = device_from_flag(args.GPU)
+    device = rank_device(cfg, args.GPU)
+    group = initialize_from_config(cfg.mesh, device)
+    is_main = process_index() == 0
     os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
-    dump_config(cfg, f"{cfg.train.checkpoint_dir}/active_config.yml")
+    if is_main:
+        dump_config(cfg, f"{cfg.train.checkpoint_dir}/active_config.yml")
 
     pcfg = pretrain_config(cfg)
     net = PretrainNet(pcfg.backbone, pcfg.num_joints)
     net.load_state_dict(init_pretrain_params(
         torch.Generator().manual_seed(cfg.train.seed), pcfg))
     state = init_pretrain_state(net.to(device), pcfg)
+    replicate_train_state(state, group)
     mixed = build_datasets(cfg)
     log_path = osp.join(cfg.train.checkpoint_dir, "pretrain_log.jsonl")
     t0 = time.time()
@@ -263,30 +286,38 @@ def main(input_args=None) -> int:
     pending = None
 
     def consume(packed, step, i):
-        if step % cfg.train.log_every == 0:
+        if step % cfg.train.log_every == 0 and is_main:
             rec = {"step": step, **dict(zip(names, packed.cpu().tolist())),
                    "steps_per_sec": round((i + 1) / (time.time() - t0), 3)}
             with open(log_path, "a") as f:
                 f.write(json.dumps(rec) + "\n")
 
     # packed metrics, read one step late (as Trainer.fit): one copy to the
-    # host a step, and the device does not wait for the host's logging
-    for i, batch in enumerate(itertools.islice(
-            batch_iterator(mixed, cfg.train.batch_size, seed=cfg.train.seed),
-            args.max_steps)):
-        batch = batch_to_device({k: batch[k] for k in BATCH_KEYS}, device)
-        _, m = pretrain_step(state, batch, pcfg)
-        if names is None:
-            names = tuple(sorted(m))
-        packed = torch.stack([m[k].float() for k in names])
-        n_done += 1
+    # host a step, and the device does not wait for the host's logging;
+    # every rank draws the same global batches and keeps its rows
+    try:
+        for i, batch in enumerate(itertools.islice(
+                batch_iterator(mixed, cfg.train.batch_size,
+                               seed=cfg.train.seed), args.max_steps)):
+            batch = batch_to_device(
+                shard_batch({k: batch[k] for k in BATCH_KEYS}), device)
+            _, m = pretrain_step(state, batch, pcfg, group)
+            if names is None:
+                names = tuple(sorted(m))
+            packed = torch.stack([m[k].float() for k in names])
+            n_done += 1
+            if pending is not None:
+                consume(*pending)
+            pending = (packed, step0 + n_done, i)
         if pending is not None:
             consume(*pending)
-        pending = (packed, step0 + n_done, i)
-    if pending is not None:
-        consume(*pending)
-    save_train_state(osp.join(cfg.train.checkpoint_dir, "pretrain_last.npz"),
-                     state)
+        check_train_state(state, group)
+        if is_main:
+            save_train_state(osp.join(cfg.train.checkpoint_dir,
+                                      "pretrain_last.npz"), state)
+    finally:
+        if cfg.mesh.multihost:
+            finalize_distributed()
     print(f"pretrain finished at step {step0 + n_done}")
     return 0
 

@@ -16,6 +16,8 @@ import pickle
 import numpy as np
 import torch
 
+from romp_tpu_torch.parallel.mesh import global_ratio
+
 POSE_DIM = 69
 
 
@@ -77,12 +79,14 @@ def gmm_prior_nll(prior: GmmPrior, body_pose: torch.Tensor) -> torch.Tensor:
 
 
 def gmm_prior_loss(prior: GmmPrior, body_pose: torch.Tensor,
-                   person_w: torch.Tensor,
-                   valuable_thresh: float = 5.0) -> torch.Tensor:
-    """NLL / 100, values below 5 zeroed (`calc_loss.py:152-157`)."""
+                   person_w: torch.Tensor, valuable_thresh: float = 5.0,
+                   group=None) -> torch.Tensor:
+    """NLL / 100, values below 5 zeroed (`calc_loss.py:152-157`), the
+    weighted mean over the persons (of all ranks of `group`)."""
     nll = gmm_prior_nll(prior, body_pose) / 100.0
     nll = torch.where(nll < valuable_thresh, torch.zeros_like(nll), nll)
-    return torch.sum(nll * person_w) / (torch.sum(person_w) + 1e-6)
+    return global_ratio(torch.sum(nll * person_w), torch.sum(person_w), 1e-6,
+                        group)
 
 
 def angle_prior(pose: torch.Tensor) -> torch.Tensor:

@@ -32,6 +32,13 @@ frames, 128x128 maps, 64 depth bins) keeps about 19 GB of activations
 (`chip_smoke.py` phase 6 on an H100), so its 6 clips would not fit the
 card's 80 GB without it.
 
+Data parallel (`group`, `parallel/mesh.py`): each rank holds whole clips
+of the global batch, so each clip's losses and BatchNorm statistics stay
+on its rank; the means over clips are over all ranks' clips (one
+collective each for the losses and the BatchNorm updates), and the flat
+gradient is all-reduced once: every rank takes the one-process step on
+the global batch.
+
 The optimizer is ROMP's (`train_step.py`: optax's apply_if_finite(chain(
 clip_by_global_norm, adamw))) over the head's parameters, in place on one
 flat buffer. Unlike ROMP's step, the BatchNorm statistics are committed
@@ -53,6 +60,9 @@ from romp_tpu_torch.models.trace import (
 )
 from romp_tpu_torch.ops.centermap import sample_maps_at
 from romp_tpu_torch.ops.rotations import rot6d_to_axis_angle
+from romp_tpu_torch.parallel.mesh import (
+    all_reduce_grad, global_sum, group_size,
+)
 from romp_tpu_torch.pipeline.romp_pipeline import precision_flags
 from romp_tpu_torch.pipeline.trace_pipeline import _sample3d
 from romp_tpu_torch.train import losses
@@ -182,16 +192,34 @@ def _recorded_clip_losses(net: TraceNet, updates: Dict[str, torch.Tensor],
         record_bn_updates(net, on=False)
 
 
+def _clip_mean(per_clip, group) -> Dict[str, torch.Tensor]:
+    """The mean of each entry of the per-clip dicts over the clips, those
+    of every rank of `group` included (one collective)."""
+    names = list(per_clip[0])
+    stacked = [torch.stack([m[k] for m in per_clip]) for k in names]
+    if group is None:
+        return {k: v.mean(0) for k, v in zip(names, stacked)}
+    sums = global_sum(torch.cat([v.sum(0).reshape(-1) for v in stacked]),
+                      group) / (len(per_clip) * group_size(group))
+    out, offset = {}, 0
+    for k, v in zip(names, stacked):
+        n = v[0].numel()
+        out[k] = sums[offset:offset + n].view(v.shape[1:])
+        offset += n
+    return out
+
+
 def trace_compute_losses(net: TraceNet, batch: Dict[str, torch.Tensor],
                          cfg: TraceTrainConfig,
-                         prior: Optional[GmmPrior] = None
+                         prior: Optional[GmmPrior] = None, group=None
                          ) -> Tuple[torch.Tensor, Tuple[
                              Dict[str, torch.Tensor],
                              Dict[str, torch.Tensor]]]:
     """(total, (BatchNorm updates, metrics)), as JAX's
     `trace_compute_losses`: each clip's losses and BatchNorm updates, both
-    averaged over the clips, the losses then merged (`merge_losses`). The
-    head runs in its current mode (train mode for training)."""
+    averaged over the clips (all ranks' clips with `group`), the losses
+    then merged (`merge_losses`). The head runs in its current mode (train
+    mode for training)."""
     per_clip, updates = [], []
     for b in range(batch["feature_maps"].shape[0]):
         updates.append({})
@@ -201,31 +229,32 @@ def trace_compute_losses(net: TraceNet, batch: Dict[str, torch.Tensor],
             checkpoint(_recorded_clip_losses, *args, use_reentrant=False,
                        preserve_rng_state=False)
             if torch.is_grad_enabled() else _recorded_clip_losses(*args))
-    loss_dict = {k: torch.stack([m[k] for m in per_clip]).mean(0)
-                 for k in per_clip[0]}
-    bn_updates = {k: torch.stack([u[k] for u in updates]).mean(0)
-                  for k in updates[0]}
+    loss_dict = _clip_mean(per_clip, group)
+    with torch.no_grad():
+        bn_updates = _clip_mean(updates, group)
     total, metrics = merge_losses(loss_dict, cfg.loss_thresh)
     return total, (bn_updates, metrics)
 
 
 def trace_train_step(state: TrainState, batch: Dict[str, torch.Tensor],
-                     cfg: TraceTrainConfig, prior: Optional[GmmPrior] = None
+                     cfg: TraceTrainConfig, prior: Optional[GmmPrior] = None,
+                     group=None
                      ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One AdamW step of the head, in place (`trace_train_step.py:178-
     189`). Returns the state and the metrics (0-dim device tensors: the
     clamped losses, task sums and total). The BatchNorm statistics take the
-    clips' averaged updates whether or not the gradient was finite."""
+    clips' averaged updates whether or not the gradient was finite. With
+    `group`, `batch` is this rank's clips of the global batch."""
     net = state.net.train()
     params = [dict(net.named_parameters())[k] for k in state.names]
     with (precision_flags(cfg) if state.flat.is_cuda
           else contextlib.nullcontext()):
         total, (bn_updates, metrics) = trace_compute_losses(
-            net, batch, cfg, prior)
+            net, batch, cfg, prior, group)
         grads = torch.autograd.grad(total, params, allow_unused=True)
     grad = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
                       for p, g in zip(params, grads)])
-    optimizer_update(state, grad, cfg)
+    optimizer_update(state, all_reduce_grad(grad, group), cfg)
     with torch.no_grad():
         state.bn_flat.copy_(torch.cat([bn_updates.get(k, v).reshape(-1)
                                        for k, v in state.bn_state.items()]))

@@ -7,9 +7,13 @@ ground-truth centers, run SMPL, compute the composite loss
 (`calc_loss.py:25`), step AdamW. Each image carries up to P ground-truth
 persons with a validity mask, so every shape is fixed.
 
-One step on one device. What the JAX package leaves to optax is written out
-as tensor ops that compute what optax computes, on the device and with no
-host sync:
+One step on one device, or on each rank of a data-parallel group
+(`group`, `parallel/mesh.py`): each rank holds its rows of the global
+batch, the BatchNorm statistics and the losses are the global batch's,
+and the flat gradient is all-reduced once, so every rank takes the
+one-process step on the whole batch. What the JAX package leaves to optax
+is written out as tensor ops that compute what optax computes, on the
+device and with no host sync:
 - `apply_if_finite(chain(clip_by_global_norm(grad_clip), adamw(lr,
   weight_decay)), 10000)`: a step with a non-finite gradient leaves the
   parameters, both moments, the inner counts and the BatchNorm statistics
@@ -43,6 +47,9 @@ from romp_tpu_torch.models.layers import (
 from romp_tpu_torch.models.romp import RompNet
 from romp_tpu_torch.ops.centermap import parse_centermap2d, sample_maps_at
 from romp_tpu_torch.ops.projection import weak_perspective_projection
+from romp_tpu_torch.parallel.mesh import (
+    all_reduce_grad, check_replicas, global_sums, replicate_tree,
+)
 from romp_tpu_torch.pipeline.romp_pipeline import (
     precision_flags, unpack_params,
 )
@@ -220,6 +227,26 @@ def init_train_state(net: nn.Module, cfg: TrainConfig) -> TrainState:
                       torch.zeros((), dtype=torch.int32, device=flat.device))
 
 
+def _state_tensors(state: TrainState) -> List[torch.Tensor]:
+    opt = state.opt_state
+    counters = [opt.notfinite_count, opt.last_finite, opt.total_notfinite,
+                opt.count, opt.schedule_count]
+    return [state.flat, state.bn_flat, opt.mu, opt.nu, state.step,
+            *(c for c in counters if c is not None)]
+
+
+def replicate_train_state(state: TrainState, group) -> None:
+    """Every rank of `group` takes rank 0's parameters, BatchNorm
+    statistics, optimizer state and step, in place (nothing with no
+    group)."""
+    replicate_tree(_state_tensors(state), group)
+
+
+def check_train_state(state: TrainState, group) -> None:
+    """Raise unless every rank of `group` holds bitwise the same state."""
+    check_replicas(_state_tensors(state), group)
+
+
 @torch.no_grad()
 def optimizer_update(state: TrainState, grad: torch.Tensor,
                      cfg: TrainConfig) -> torch.Tensor:
@@ -289,7 +316,7 @@ def run_net_remat(net: RompNet, image: torch.Tensor, cfg: TrainConfig
 
 def compute_losses(net: RompNet, batch: Dict[str, torch.Tensor],
                    smpl: SmplModel, cfg: TrainConfig,
-                   prior: Optional[GmmPrior] = None
+                   prior: Optional[GmmPrior] = None, group=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward and composite loss (`train_step.py:181-291`): (total,
     metrics). The net runs in its current mode (train mode for training);
@@ -298,7 +325,9 @@ def compute_losses(net: RompNet, batch: Dict[str, torch.Tensor],
     in [-1, 1]; person_bbox_hw (B, P, 2); person_mask (B, P); kp2d_gt
     (B, P, 54, 2); kp3d_gt (B, P, 54, 3); kp3d_mask, pose_mask, betas_mask
     (B, P); pose_gt (B, P, 66); betas_gt (B, P, 10); optionally kp2d_mask.
-    The GT center maps and flat indices are made here, on the device."""
+    The GT center maps and flat indices are made here, on the device.
+    With `group`, every loss is the global batch's mean (the same value on
+    every rank), and the merger clamps those."""
     center_maps, params_maps = run_net_remat(net, batch["image"], cfg)
     # loss math in f32 (`train_step.py:208-212`)
     center_maps = at_least_f32(center_maps)
@@ -347,42 +376,47 @@ def compute_losses(net: RompNet, batch: Dict[str, torch.Tensor],
 
     loss_dict = {
         "centermap": cfg.centermap_weight * losses.focal_heatmap_loss(
-            center_maps[..., 0], centermap_gt),
+            center_maps[..., 0], centermap_gt, group),
         "kp2d": cfg.kp2d_weight * losses.kp2d_l2_loss(
-            flat(batch["kp2d_gt"]), pj2d[:, :54], kp2d_w),
+            flat(batch["kp2d_gt"]), pj2d[:, :54], kp2d_w, group),
         "mpjpe": cfg.mpjpe_weight * losses.mpjpe_loss(
-            kp3d_gt, joints[:, :54], kp3d_w),
+            kp3d_gt, joints[:, :54], kp3d_w, group),
         "pampjpe": cfg.pampjpe_weight * losses.pampjpe_loss(
-            kp3d_gt[:, :24], joints[:, :24], kp3d_w),
+            kp3d_gt[:, :24], joints[:, :24], kp3d_w, group),
         "pose": cfg.pose_weight * losses.pose_l2_loss(
-            flat(batch["pose_gt"]), thetas[:, :66], pose_w),
+            flat(batch["pose_gt"]), thetas[:, :66], pose_w, group),
         "shape": cfg.shape_weight * losses.shape_loss(
             flat(batch["betas_gt"]), out["smpl_betas"].reshape(B * P, -1),
-            w, flat(batch["betas_mask"]).float()),
+            w, flat(batch["betas_mask"]).float(), group),
     }
     if prior is not None and cfg.prior_weight > 0:
         loss_dict["prior"] = cfg.prior_weight * gmm_prior_loss(
-            prior, thetas[:, 3:66], w)
+            prior, thetas[:, 3:66], w, group=group)
         if cfg.angle_prior_weight > 0:
+            num, den = global_sums(torch.sum(angle_prior(thetas) * w),
+                                   torch.sum(w), group=group)
             loss_dict["prior"] = loss_dict["prior"] + (
-                cfg.angle_prior_weight * torch.sum(angle_prior(thetas) * w)
-                / (torch.sum(w) + 1e-6))
+                cfg.angle_prior_weight * num / (den + 1e-6))
     return merge_losses(loss_dict, cfg.loss_thresh, cfg.new_training)
 
 
 def run_step(state: TrainState, losses_fn: Callable[[nn.Module], Tuple[
         torch.Tensor, Dict[str, torch.Tensor]]], cfg,
-             gate_bn: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             gate_bn: bool, group=None
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One AdamW step of `state.net`, in place: `losses_fn(net)` gives
     (total, metrics), run with the net in train mode and its BatchNorms
     recording their updates; `cfg` is any step config with TrainConfig's
     optimizer fields and `compute_dtype`. The BatchNorm statistics take
     the recorded updates, only when the gradient was finite if `gate_bn`
     (ROMP's and pretraining's rule) or always (BEV's, as JAX's steps do).
+    With `group` (a data-parallel step; `losses_fn` then computes global
+    losses), the BatchNorm statistics are the global batch's and the
+    gradient is all-reduced before the update.
     Returns (whether the gradient was finite, the detached metrics)."""
     net = state.net.train()
     params = [dict(net.named_parameters())[k] for k in state.names]
-    updates = record_bn_updates(net)
+    updates = record_bn_updates(net, group=group)
     try:
         with (precision_flags(cfg) if state.flat.is_cuda
               else contextlib.nullcontext()):
@@ -392,7 +426,7 @@ def run_step(state: TrainState, losses_fn: Callable[[nn.Module], Tuple[
         record_bn_updates(net, on=False)
     grad = torch.cat([(torch.zeros_like(p) if g is None else g).reshape(-1)
                       for p, g in zip(params, grads)])
-    finite = optimizer_update(state, grad, cfg)
+    finite = optimizer_update(state, all_reduce_grad(grad, group), cfg)
     with torch.no_grad():
         # every train-mode BatchNorm recorded its update
         bn_new = torch.cat([updates.get(k, v).reshape(-1)
@@ -405,14 +439,17 @@ def run_step(state: TrainState, losses_fn: Callable[[nn.Module], Tuple[
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                smpl: SmplModel, cfg: TrainConfig,
-               prior: Optional[GmmPrior] = None
+               prior: Optional[GmmPrior] = None, group=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One AdamW step, in place (`train_step.py:294-322`). Returns the state
     and the metrics (0-dim device tensors: the clamped losses, task sums,
-    total, grads_finite). BatchNorm statistics follow the step's skip rule."""
+    total, grads_finite). BatchNorm statistics follow the step's skip rule.
+    With `group`, `batch` is this rank's rows of the global batch, and the
+    step is the global batch's on every rank."""
     finite, metrics = run_step(
-        state, lambda net: compute_losses(net, batch, smpl, cfg, prior), cfg,
-        gate_bn=True)
+        state, lambda net: compute_losses(net, batch, smpl, cfg, prior,
+                                          group), cfg,
+        gate_bn=True, group=group)
     metrics["grads_finite"] = finite.float()
     return state, metrics
 

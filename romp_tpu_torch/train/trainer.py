@@ -6,9 +6,16 @@ non-finite steps are skipped and counted (the step rejects them on the
 device; the host logs them a step later), validation every
 `test_interval` steps keeps the best checkpoint, rotating step snapshots,
 a moving-average loss log (`train_log.jsonl`) and TensorBoard curves,
-resume and fine-tune. One process on one device: the JAX package's mesh
-and multi-host code (SPMD over a TPU slice) is not ported; data
-parallelism over several GPUs would be DDP (ROADMAP).
+resume and fine-tune.
+
+One process on one device, or one rank of a data-parallel job
+(`parallel/mesh.py`, the JAX package's mesh): `mesh.multihost=true` with
+`mesh.coordinator`, `mesh.num_processes` and `mesh.process_id` joins this
+process as that rank (the launcher starts `mesh.n_devices` such processes
+on one host). Each rank takes rank 0's state, is fed the same global
+batches and steps on its rows of each (`shard_batch`); the step makes the
+global batch's update on every rank. Only rank 0 writes the log,
+TensorBoard and checkpoints (the JAX trainer's `_is_main`).
 
 Checkpoints are the port's own `.npz` of named arrays: `p::<name>`
 parameters and `b::<name>` BatchNorm statistics (torch layouts), `mu::` /
@@ -31,10 +38,14 @@ import torch
 
 from romp_tpu_torch.config import Config
 from romp_tpu_torch.models.romp import RompNet, init_romp_params
+from romp_tpu_torch.parallel.mesh import (
+    initialize_from_config, process_index, shard_batch,
+)
 from romp_tpu_torch.smpl.body_model import SmplModel
 from romp_tpu_torch.train.priors import GmmPrior
 from romp_tpu_torch.train.train_step import (
-    TrainConfig, TrainState, init_train_state, train_step,
+    TrainConfig, TrainState, check_train_state, init_train_state,
+    replicate_train_state, train_step,
 )
 
 COUNTERS = ("notfinite_count", "last_finite", "total_notfinite", "count",
@@ -138,19 +149,20 @@ def batch_to_device(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 class Trainer:
     """Bring your own batch iterator (dicts in `compute_losses`' schema,
-    numpy or tensors). Runs on `device` ("cuda" unless the caller passes
-    "cpu")."""
+    numpy or tensors; in a data-parallel job, the global batches, the same
+    on every rank). Runs on `device` ("cuda" unless the caller passes
+    "cpu"; a rank's own device in a data-parallel job)."""
 
     def __init__(self, cfg: Config, smpl: SmplModel,
                  params: Optional[Dict[str, torch.Tensor]] = None,
                  eval_fn: Optional[Callable[[TrainState], Dict[str, float]]]
                  = None, device="cuda"):
-        if cfg.mesh.multihost:
-            raise NotImplementedError(
-                "multi-host training is SPMD over a TPU slice in the JAX "
-                "package; the port trains on one device (ROADMAP: DDP)")
         self.cfg = cfg
         self.device = torch.device(device)
+        # the group the steps reduce over (None: one process); rank-0-only
+        # logging and checkpoints (`trainer.py:151`)
+        self.group = initialize_from_config(cfg.mesh, self.device)
+        self._is_main = process_index() == 0
         self.smpl = smpl
         self.eval_fn = eval_fn
         self.tcfg = train_config(cfg)
@@ -168,17 +180,18 @@ class Trainer:
         net = RompNet(cfg.model.backbone)
         net.load_state_dict(params)
         self.state = init_train_state(net.to(self.device), self.tcfg)
-        if cfg.train.resume:
+        if cfg.train.resume and self._is_main:
             # fine-tune: weights and BN statistics, a fresh optimizer and
             # step (`romp/lib/utils/train_utils.py:15-66`); else all of it
             load_train_state(cfg.train.resume, self.state,
                              weights_only=cfg.train.fine_tune)
+        replicate_train_state(self.state, self.group)
         self.best_val = float("inf")
         self._metric_names = None
         os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
         self._log_path = osp.join(cfg.train.checkpoint_dir, "train_log.jsonl")
         self.tb = None
-        if cfg.train.tensorboard:
+        if cfg.train.tensorboard and self._is_main:
             from romp_tpu_torch.utils.tensorboard import SummaryWriter
 
             self.tb = SummaryWriter(osp.join(cfg.train.checkpoint_dir, "tb"))
@@ -186,13 +199,16 @@ class Trainer:
     def step(self, batch: Dict) -> torch.Tensor:
         """One train step on a batch; the metrics as ONE packed f32 device
         tensor in `self._metric_names` order (sorted)."""
-        _, m = train_step(self.state, batch_to_device(batch, self.device),
-                          self.smpl, self.tcfg, self.prior)
+        _, m = train_step(self.state,
+                          batch_to_device(shard_batch(batch), self.device),
+                          self.smpl, self.tcfg, self.prior, self.group)
         if self._metric_names is None:
             self._metric_names = tuple(sorted(m))
         return torch.stack([m[k].float() for k in self._metric_names])
 
     def _log(self, record: Dict) -> None:
+        if not self._is_main:
+            return
         with open(self._log_path, "a") as f:
             f.write(json.dumps(record) + "\n")
         if self.tb is not None and "step" in record:
@@ -208,7 +224,7 @@ class Trainer:
     def _save_snapshot(self, step: int) -> None:
         """The newest `train.keep_checkpoints` step snapshots."""
         keep = self.cfg.train.keep_checkpoints
-        if keep <= 0:
+        if keep <= 0 or not self._is_main:
             return
         ckdir = self.cfg.train.checkpoint_dir
         save_train_state(osp.join(ckdir, f"step_{step:08d}.npz"), self.state)
@@ -257,8 +273,10 @@ class Trainer:
                 key = val.get("pampjpe", val.get("total", 0.0))
                 if key < self.best_val:
                     self.best_val = key
-                    save_train_state(osp.join(cfg.checkpoint_dir, "best.npz"),
-                                     self.state)
+                    if self._is_main:
+                        save_train_state(
+                            osp.join(cfg.checkpoint_dir, "best.npz"),
+                            self.state)
 
         pending = None                 # (packed metrics, step)
         # islice: a run of max_steps steps asks for no batch beyond them
@@ -277,6 +295,9 @@ class Trainer:
                 pending = (packed, step)
         if pending is not None:
             consume(*pending)
-        save_train_state(osp.join(cfg.checkpoint_dir, "last.npz"), self.state)
+        check_train_state(self.state, self.group)
+        if self._is_main:
+            save_train_state(osp.join(cfg.checkpoint_dir, "last.npz"),
+                             self.state)
         last_metrics["skipped"] = n_skipped
         return last_metrics

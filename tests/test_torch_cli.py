@@ -134,8 +134,9 @@ def test_gpu_flag_never_falls_back_to_cpu():
 
 def test_port_runs_without_jax():
     """With `import jax`, `import optax` and `import romp_tpu` made to fail,
-    every module of the port imports (`romp_tpu_torch.serve` and
-    `romp_tpu_torch.train`, TRACE's training among them, the tools and the
+    every module of the port imports (`romp_tpu_torch.serve`,
+    `romp_tpu_torch.train` and `romp_tpu_torch.parallel`, TRACE's training
+    among them, the tools and the
     Blender addon without `bpy`), and the tiny ROMP
     slice (directly and behind the port's server), the tiny TRACE slice
     with RAFT's flow and the tiny BEV slice run on the CPU."""
@@ -156,7 +157,8 @@ def test_port_runs_without_jax():
                      "eval.metrics", "eval.protocols", "eval.convergence",
                      "ops.pnp", "ops.epropnp_mc", "smpl.family",
                      "tools.export_program", "tools.prepare_smpl",
-                     "tools.show_results", "vis.blender_addon"):
+                     "tools.show_results", "vis.blender_addon",
+                     "parallel.mesh"):
             assert "romp_tpu_torch." + name in sys.modules, name
         from romp_tpu_torch.models.bev import init_bev_params
         from romp_tpu_torch.models.raft import (
@@ -238,9 +240,9 @@ def test_port_runs_without_jax():
 
 
 def test_port_sources_import_nothing_of_the_jax_package():
-    """No line of the port (its server and trainer included), nor of
-    chip_smoke.py, imports `romp_tpu`, `jax` or `optax` (docstrings may name
-    them)."""
+    """No line of the port (its server, trainer and `parallel/` included),
+    nor of chip_smoke.py, imports `romp_tpu`, `jax` or `optax` (docstrings
+    may name them)."""
     pattern = re.compile(
         r"^\s*(from|import)\s+(romp_tpu|jax|optax)(\.|\s|$)")
     files = [osp.join(REPO, "chip_smoke.py")]
@@ -255,4 +257,5 @@ def test_port_sources_import_nothing_of_the_jax_package():
                                      f"{line.strip()}")
     assert osp.join(REPO, "romp_tpu_torch", "serve.py") in files
     assert osp.join(REPO, "romp_tpu_torch", "train", "launch.py") in files
+    assert osp.join(REPO, "romp_tpu_torch", "parallel", "mesh.py") in files
     assert len(files) > 20 and not offenders, offenders

@@ -445,3 +445,52 @@ def test_deform_autograd_on_card_is_the_kernel(dev):
         fwd + 1, bwd + 1)
     for a, r in zip(grads, deform_conv2d_bwd_plain(x, off, w, gout, 8)):
         assert _rel(a, r) <= 1e-4
+
+
+def test_two_rank_train_step_on_the_card(dev, tmp_path):
+    """The ROMP step of the full-width HRNet-W32 (256x256, a global batch
+    of 2 x 4 persons, rank 1's sample with 1 valid person) on 2 ranks
+    (`parallel/mesh.py`; two processes on cuda:0 over gloo, or cuda:0 /
+    cuda:1 over NCCL where the machine has two cards), each launching the
+    skinning kernel and its backward once: the ranks' reduced gradients
+    are bitwise equal, and their distance to the f64 CPU step's gradient
+    is at most 1.5x the one-process card step's (median and worst tensor,
+    as chip_smoke.py's dp phase; the f32 step of a random net is
+    ill-conditioned, so f32 is held to f64, not to f32)."""
+    import json
+
+    import numpy as np
+
+    from tests.torch_parallel_common import body, grad_distances
+
+    _build.load()         # built once, before the children load it
+    nccl = torch.cuda.device_count() >= 2
+    kids = {f"dp{r}": body("romp_step", out=str(tmp_path / f"dp{r}.npz"),
+                           rank=r, world=2, store=str(tmp_path / "store"),
+                           device=f"cuda:{r if nccl else 0}",
+                           dtype="float32", backend=None if nccl else "gloo",
+                           config="full")
+            for r in range(2)}
+    kids["single"] = body("romp_step", out=str(tmp_path / "single.npz"),
+                          mode="single", device="cuda:0", dtype="float32",
+                          config="full")
+    kids["f64"] = body("romp_step", out=str(tmp_path / "f64.npz"),
+                       mode="single", config="full")
+    try:
+        for name, kid in kids.items():
+            rc, log = kid.result()
+            assert rc == 0, f"{name}: {log[-3000:]}"
+    finally:
+        for kid in kids.values():
+            kid.kill()
+    got = {k: np.load(tmp_path / f"{k}.npz") for k in kids}
+    assert np.array_equal(got["dp0"]["grad"], got["dp1"]["grad"])
+    for r in range(2):
+        with open(tmp_path / f"dp{r}.npz.json") as f:
+            assert json.load(f)["launches"] == {"skinning": 1,
+                                                "skinning_bwd": 1}
+    names = [str(n) for n in got["f64"]["names"]]
+    ref = got["f64"]["grad"]
+    two = grad_distances(got["dp0"]["grad"], ref, names, "full")
+    one = grad_distances(got["single"]["grad"], ref, names, "full")
+    assert two[0] <= 1.5 * one[0] and two[1] <= 1.5 * one[1], (two, one)
