@@ -187,8 +187,9 @@ from romp_tpu_torch.ops.centermap import (  # noqa: E402
     nms_heatmap, nms_heatmap3d, parse_centermap3d,
 )
 from romp_tpu_torch.ops.deform_conv import (  # noqa: E402
-    bwd_global_share, bwd_plan, deform_conv2d, deform_conv2d_backward,
-    deform_conv2d_bwd_plain, deform_conv2d_plain, deform_smem,
+    bf16_window_hit_share, bwd_global_share, bwd_plan, deform_bf16_plan,
+    deform_conv2d, deform_conv2d_backward, deform_conv2d_bwd_plain,
+    deform_conv2d_plain, deform_smem,
 )
 from romp_tpu_torch.ops.fused_chain import (  # noqa: E402
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain, launch_plan,
@@ -558,7 +559,8 @@ def chain_row(dev, g, B, C, H, blocks=4):
 TENSOR_CORE_KERNELS = ("conv3x3_bn_act_mma_kernel", "skinning_tf32_kernel",
                        "skinning_bwd_segment_kernel",
                        "deform_conv_tf32_kernel",
-                       "deform_conv_bf16_kernel", "deform_bwd_tf32_kernel")
+                       "deform_bf16_persistent_kernel",
+                       "deform_bwd_tf32_kernel")
 
 
 def tensor_core_sass():
@@ -585,11 +587,11 @@ def demangled(name):
             ident = name[m.end():m.end() + int(m.group()[k:])]
             if re.fullmatch(r"[A-Za-z_]\w*_kernel", ident):
                 rest = name[m.end() + len(ident):]
-                args = re.match(r"I((?:Li\d+E)+)E", rest)
+                args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
                 if args is None:
                     return ident
                 return (f"{ident}<"
-                        f"{','.join(re.findall(r'Li(\d+)E', args[1]))}>")
+                        f"{','.join(re.findall(r'L[ib](\d+)E', args[1]))}>")
     return name
 
 
@@ -637,27 +639,55 @@ def chain_bf16_row(dev, g, B, C, H, blocks=4):
         unfused_ms=unfused_ms)
 
 
+BF16_KERNEL = "deform_bf16_persistent_kernel"
+
+
 def deform_bf16_row(dev, g):
     """The deform's bf16 variant (bf16 x and weight, f32 offsets, f32 out)
     at TRACE's shape against its plain twin (the same rounding points, so
-    f32 summation order: 1e-4 of max|ref|), and with zero offsets against
-    F.conv2d of the same bf16 values in f32 (TF32 off)."""
+    f32 summation order: 1e-4 of max|ref|) with offsets N(0, 2^2) (the
+    timed case), N(0, 24^2) (far outside the x window and the image:
+    corners from device memory) and zero; with zero offsets also against
+    F.conv2d of the same bf16 values in f32 (TF32 off). One launch a
+    call: a profiled call runs the one kernel and nothing else, and the
+    call allocates nothing beside its output. The share of the samples
+    whose corners the kernel read from its x window."""
     B, C, H, W, G, Cout = (DEFORM[k] for k in ("B", "C", "H", "W", "G",
                                                "Cout"))
     x = torch.randn(B, C, H, W, generator=g).to(torch.bfloat16).to(dev)
     off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
     w = (torch.randn(Cout, C, 3, 3, generator=g) * 0.1).to(
         torch.bfloat16).to(dev)
-    out = deform_conv2d(x, off, w, G)
-    ref = deform_conv2d_plain(x, off, w, G)
-    torch.cuda.synchronize()
-    err = rel_err(out, ref)
-    check(out.dtype == torch.float32 and err <= 1e-4,
-          f"deform bf16: rel err {err}")
+    far = (torch.randn(B, G * 18, H, W, generator=g) * 24.0).to(dev)
+    errs = {}
+    for name, o in (("sigma2", off), ("sigma24", far),
+                    ("zero", torch.zeros_like(off))):
+        got = deform_conv2d(x, o, w, G)
+        ref = deform_conv2d_plain(x, o, w, G)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.float32, f"deform bf16: {got.dtype} out")
+        errs[name] = rel_err(got, ref)
+        if name == "sigma2":
+            out, max_abs = got, float((got - ref).abs().max())
+    check(max(errs.values()) <= 1e-4, f"deform bf16: rel errs {errs}")
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         conv = F.conv2d(x.float(), w.float(), padding=1)
     zero_err = rel_err(deform_conv2d(x, torch.zeros_like(off), w, G), conv)
     check(zero_err <= 1e-4, f"deform bf16 zero offsets vs conv2d: {zero_err}")
+    call = lambda: deform_conv2d(x, off, w, G)  # noqa: E731
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    once = call()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated(dev) - base - 4 * once.numel()
+    check(extra == 0, f"deform bf16: {extra} bytes allocated beside the "
+          "output")
+    names = sorted({e.name.replace("(anonymous namespace)::", "")
+                    .split("(")[0] for e in device_events(call)})
+    check(len(names) == 1 and BF16_KERNEL in names[0],
+          f"deform bf16: a call ran {names}")
+    del once
     # x (bf16) and offsets read once, the f32 output written once; per
     # output pixel, group and tap the bf16 products of the contraction, and
     # the three bilinear blends of Cg channels (3 FLOP each) in f32
@@ -665,14 +695,16 @@ def deform_bf16_row(dev, g):
         2 * x.numel() + 4 * off.numel() + 2 * w.numel() + 4 * out.numel(),
         (B * H * W * 9 * C * 2 * Cout, BF16_FLOP_PER_S),
         (B * H * W * 9 * C * 9, F32_FLOP_PER_S))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return dict(
         shape=f"B={B},C={C},H=W={H},G={G},Cout={Cout},bf16",
-        max_abs_err=float((out - ref).abs().max()), rel_err=err,
-        zero_offset_rel_err=zero_err,
-        ms=time_ms(lambda: deform_conv2d(x, off, w, G)),
-        device_ms=device_ms(lambda: deform_conv2d(x, off, w, G),
-                            {"deform_prep_bf16_kernel": 1,
-                             "deform_conv_bf16_kernel": 1}),
+        max_abs_err=max_abs, rel_err=errs["sigma2"], rel_errs=errs,
+        zero_offset_rel_err=zero_err, kernels_a_call=names,
+        plan=deform_bf16_plan(B, C, H, W, G, Cout, sms),
+        window_hit_share=bf16_window_hit_share(off, G),
+        window_hit_share_sigma24=bf16_window_hit_share(far, G),
+        ms=time_ms(call),
+        device_ms=device_ms(call, {BF16_KERNEL: 1}),
         plain_ms=time_ms(lambda: deform_conv2d_plain(x, off, w, G), reps=10),
         **bounds)
 
@@ -3134,7 +3166,10 @@ def main():
           deform_kernels={demangled(r.pop("kernel")): r for r in
                           _build.kernel_resources("deform")},
           deform_smem_bytes=deform_smem(DEFORM["G"],
-                                        DEFORM["C"] // DEFORM["G"]))
+                                        DEFORM["C"] // DEFORM["G"]),
+          deform_bf16_plan=deform_bf16_plan(
+              *(DEFORM[k] for k in ("B", "C", "H", "W", "G", "Cout")),
+              torch.cuda.get_device_properties(dev).multi_processor_count))
 
     rows = phase_kernels(dev)
     params = seeded_params()

@@ -60,13 +60,78 @@
 // the two rows at each corner column rounded to bf16; the blend of the two
 // columns rounded to bf16 (the sample); the weight product accumulated in
 // f32. Each blend is two exact products (bf16 x bf16) and one f32 add, so
-// its one rounding to bf16 is JAX's. The samples go to shared memory as
-// bf16 (rows of 40 values: conflict-free ldmatrix) and the contraction runs
-// on mma.sync.m16n8k16 bf16 with f32 accumulation, two k steps a chunk,
-// the weights prepared by the prologue as bf16 B fragments. The chunk
-// schedule (offsets and weights by cp.async, samples double-buffered one
-// chunk ahead of the MMAs) is the f32 kernel's. Output f32. A simple
-// kernel first: it shares the f32 kernel's gathers, which bind it.
+// its one rounding to bf16 is JAX's. Output f32 NCHW.
+//
+// What bounds it at TRACE's shape: offsets 75.5 MB (f32), the output 16.8
+// MB and x 8.4 MB (bf16) moved once, 0.0301 ms at 3.35 TB/s; the
+// contraction is 2.4 GFLOP, 2.4 us on the bf16 tensor cores. Next to the
+// bytes come the instructions of 9.4 M bilinear samples (about 90 each:
+// the fractions' roundings, four corners, three roundings a channel).
+// The first version (a prologue regrouping x into scratch, then 1,024
+// short-lived CTAs whose 256 threads issued the offsets' cp.asyncs and
+// gathered every corner through L1) took 0.133 ms of device time.
+//
+// Design (deform_bf16_persistent_kernel: one launch, no scratch):
+// - Persistent CTAs, one an SM (the wrapper passes the SM count), take
+//   the work items (output-channel tile z, frame, 16 x 8 pixel tile) i,
+//   i + grid, ...; an item's blocks are its 32-channel chunks (one x
+//   window each), each of 9 taps.
+// - A producer warp (of a warpgroup whose other warps leave at once)
+//   keeps the taps' offset planes in flight into a ring of up to 8 stages
+//   (one tap's dy, dx planes of the block's groups over the tile: 8 KB at
+//   TRACE's shape), and the next block's x window into a planar buffer,
+//   each arrival signalled by an mbarrier. Where W % 8 == 0 and x and the
+//   offsets are 16-byte aligned these are TMA loads: a 5D tensor map over
+//   the offsets (W, H, dy|dx, tap, frame * G + group) and a 4D one over x
+//   (W, H, C, B), both reading zero outside the tensor, encoded on the
+//   host by cuTensorMapEncodeTiled, which the runtime's
+//   cudaGetDriverEntryPoint[ByVersion] returns (no -lcuda). Other shapes
+//   take the same kernel's copy path: the producer warp's lanes load and
+//   store the same layouts, zero outside, each lane arriving.
+// - x's window is the tile +- kEy rows and +- kEx columns (24 x 32
+//   pixels) of the block's 32 channels. At each block's start the
+//   consumer warps rewrite it from planar into 8-byte slots of 4 channels
+//   a pixel, pixels 72 bytes apart, so that a corner's 4 channels are one
+//   shared-memory load and the four corners one base address. A sample
+//   whose four corners are not all in the window reads them from device
+//   memory (masked, clamped indices): the same values, so the same
+//   sample. kEy = 8 keeps 99.996% of the samples in the window at TRACE's
+//   shape with N(0, 2^2) offsets; a miss stalls its warp for a round trip
+//   to device memory: +- 6 rows (99.92%) measured 7-14% slower and +- 4
+//   (98.3%) 1.6-1.8x (ops/deform_conv.py `bf16_window_hit_share`;
+//   PERF.md).
+// - Each CTA builds the weights' m16n8k16 B fragments of its (z, block)
+//   from the bf16 weight itself: once a CTA at TRACE's shape (18 KB).
+// - 8 consumer warps, each owning 16 pixels: a warp samples the pixels of
+//   its own MMA rows, so a tap takes no CTA-wide barrier. Per tap a lane
+//   takes 4 (pixel, 4 channels) units at once, without branches between
+//   them: dy and dx, the corners' bf16 weights, the window loads, the
+//   (rare) misses under one warp-uniform branch, the blends, the 4 bf16
+//   samples to S[tap & 1] (rows of 40 values: conflict-free ldmatrix);
+//   the warp's last tap's MMAs (mma.sync.m16n8k16 bf16, f32 accumulation,
+//   16 pixels x 32 output channels) are issued before these. The output
+//   is stored from the accumulators (each store fills four 32-byte
+//   sectors). Two CTA-wide barriers a block, around the window's rewrite.
+// - Registers: 12 warps get 168 a thread, where the consumers spilled;
+//   the producer warpgroup gives its registers up (setmaxnreg 40) and the
+//   consumers take 232 (4% faster than a single producer warp).
+// - Any C divisible by G runs: Cg % 4 == 0 reads 4-channel slots, other
+//   Cg single channels; C past 32 takes more blocks (each its window and
+//   fragments), Cout past 32 more work items.
+// Shared memory: fragments 18 KB, S 20 KB, the slotted window 54 KB and
+// the planar one 48 KB, the ring (64 KB at TRACE's shape): 204 KB.
+// What binds it (PERF.md; utils/kernel_breakdown.py `deform_bf16`): the
+// consumer warps. With no offsets loaded at all they take about as long
+// as the whole kernel, while the offsets' stream alone takes about 1.3x
+// its bytes bound. Of their time the coefficients and blends are the most,
+// then the corner loads (random 8-byte reads, about four shared-memory
+// wavefronts each), the window's rewrite and the MMAs.
+// Measurement builds: -DROMP_DEFORM_SKIP bit 4 leaves out the window (no
+// x loads, no rewrite), 8 all of the sampling, 16 the offsets' loads
+// (bits 1 and 2 leave out the gathers and the MMAs, as in the f32
+// kernel); -DROMP_DEFORM_BF16_EY= tries other window heights. The results
+// of a SKIP build are wrong.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -84,8 +149,10 @@ constexpr int kTaps = 9;
 constexpr int kMaxSmem = 232448;
 // Measurement builds only (utils/kernel_breakdown.py): -DROMP_DEFORM_SKIP=
 // mask leaves out the gathers (1: the corners' weights stand in for the
-// samples) or the MMAs (2), so that the time of what is left can be read.
-// The results of such a build are wrong.
+// samples), the MMAs (2) or, in the bf16 kernel, the x window's loads and
+// rewrite (4), all of the sampling (8) or the offsets' loads (16), so
+// that the time of what is left can be read. The results of such a build
+// are wrong.
 #ifndef ROMP_DEFORM_SKIP
 #define ROMP_DEFORM_SKIP 0
 #endif
@@ -468,20 +535,94 @@ int launch(const Args& a, dim3 grid, size_t smem, cudaStream_t stream) {
 // ---------------------------------------------------------------- bf16 --
 
 constexpr int kSStride = kCols + 8;   // bf16 values a sample row
-constexpr int kWFragB = 2 * 4 * 32;   // uint2 B fragments a chunk
+constexpr int kWFragB = 2 * 4 * 32;   // uint2 B fragments a tap
+#ifndef ROMP_DEFORM_BF16_EY
+#define ROMP_DEFORM_BF16_EY 8
+#endif
+constexpr int kEy = ROMP_DEFORM_BF16_EY;   // window rows beyond the tile
+constexpr int kEx = 8;     // window columns beyond it (16-byte TMA rows)
+constexpr int kWR = kTH + 2 * kEy;
+constexpr int kWC = kTW + 2 * kEx;
+constexpr int kWPix = kWR * kWC;
+// the slotted window: a pixel's 32 bf16 channels in 8-byte slots of 4,
+// pixels 72 bytes apart (16 consecutive pixels' slots fill the 32 banks)
+constexpr int kWStride = kCols * 2 + 8;
+constexpr int kWinBytes = kWPix * kWStride;
+constexpr int kPlanarBytes = kWPix * kCols * 2;   // 32 planes of the window
+constexpr int kCW = 8;                      // consumer warps
+constexpr int kCThreads = kCW * 32;
+// and a producer warpgroup, of which one warp works: 12 warps would have
+// 168 registers a thread, too few for the consumers (they spill), so the
+// producers give theirs up (setmaxnreg) and the consumers take 232
+constexpr int kBfThreads = kCThreads + 128;
+constexpr int kMaxStages = 8;
+static_assert(kWC % 8 == 0, "TMA rows of x are multiples of 16 bytes");
 
-size_t smem_bytes_bf16(int ngc) {
-  return (size_t)3 * kWFragB * 8 + (size_t)2 * kPix * kSStride * 2 +
-         (size_t)2 * 2 * ngc * kPix * 4;
+// Shared memory of the bf16 kernel (bytes from a 128-aligned base): the
+// mbarriers (full and empty a stage, then the planar window's), the B
+// fragments of 9 taps, S (two taps), the slotted window, the planar
+// window, the ring of offset stages.
+struct BfLayout {
+  int bars, frag, samp, win, planar, stages, total;
+};
+
+__host__ __device__ __forceinline__ BfLayout bf_layout(int ngc, int nst) {
+  BfLayout L;
+  L.bars = 0;
+  L.frag = ((2 * nst + 2) * 8 + 127) / 128 * 128;
+  L.samp = L.frag + kTaps * kWFragB * 8;
+  L.win = L.samp + 2 * kPix * kSStride * 2;
+  L.planar = L.win + kWinBytes;
+  L.stages = L.planar + kPlanarBytes;
+  L.total = L.stages + nst * ngc * 2 * kPix * 4;
+  return L;
+}
+
+struct BfPlan {
+  int ctas, items, stages, ngc, smem;
+};
+
+// ctas: at most one an SM and one an item; stages: as many as fit (2 to
+// kMaxStages: 8 at TRACE's shape); smem: the layout and 128 bytes to
+// align its base
+bool bf_plan(int b, int c, int h, int wd, int g, int cout, int sms,
+             BfPlan* p) {
+  const int cg = c / g;
+  p->ngc = g < (kCols - 1) / cg + 2 ? g : (kCols - 1) / cg + 2;
+  const long long items = (long long)((cout + kN - 1) / kN) * b *
+                          ((h + kTH - 1) / kTH) * ((wd + kTW - 1) / kTW);
+  if (items >= (1ll << 31)) return false;
+  p->items = (int)items;
+  p->ctas = p->items < sms ? p->items : sms;
+  for (int s = kMaxStages; s >= 2; --s) {
+    const int smem = bf_layout(p->ngc, s).total + 128;
+    if (smem <= kMaxSmem) {
+      p->stages = s;
+      p->smem = smem;
+      return true;
+    }
+  }
+  return false;
 }
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+// two floats rounded to bf16 (one conversion instruction), lo in the low
+// half
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the low and high bf16 of a word, widened (exactly)
+__device__ __forceinline__ float lo_bf16(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float hi_bf16(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
 }
 
 __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
@@ -493,286 +634,592 @@ __device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The prologue of the bf16 variant: x (B, C, HW) bf16 -> (B, G, HW, Cg)
-// bf16; the weights as m16n8k16 B fragments, one uint2 (b0, b1) per
-// (output-channel tile z, chunk, k step ks of 16, n8 tile, lane): b0 =
-// (W[co][ci], W[co][ci + 1]), b1 = (W[co][ci + 8], W[co][ci + 9]) with co =
-// z*32 + nt*8 + lane/4, ci = cb*32 + ks*16 + 2*(lane%4); zero past C and
-// Cout.
-__global__ void __launch_bounds__(256)
-deform_prep_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                        __nv_bfloat16* __restrict__ xg,
-                        const __nv_bfloat16* __restrict__ w,
-                        uint2* __restrict__ wfrag, int HW, int Cg,
-                        int x_total, int C, int cout, int ncb, int w_total) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < x_total) {
-    const int bg = i / HW;      // b * G + g
-    const int p = i - bg * HW;
-    const __nv_bfloat16* src = x + (size_t)bg * Cg * HW + p;
-    __nv_bfloat16* dst = xg + (size_t)i * Cg;
-    for (int c = 0; c < Cg; ++c) dst[c] = src[(size_t)c * HW];
-    return;
-  }
-  i -= x_total;
-  if (i >= w_total) return;
-  const int ln = i & 31, nt = (i >> 5) & 3, ks = (i >> 7) & 1;
-  const int chunk = (i >> 8) % (kTaps * ncb);
-  const int z = (i >> 8) / (kTaps * ncb);
-  const int k = chunk / ncb, cb = chunk - k * ncb;
-  const int co = z * kN + nt * 8 + (ln >> 2);
-  const int ci = cb * kCols + ks * 16 + 2 * (ln & 3);
-  float v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = ci + (j & 1) + (j >> 1) * 8;
-    v[j] = co < cout && c < C
-        ? __bfloat162float(w[((size_t)co * C + c) * kTaps + k]) : 0.f;
-  }
-  wfrag[i] = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
 }
 
-// One sample's corners with JAX's bf16 weights: fy, fx = bf16(fraction),
-// wy0, wx0 = bf16(1 - f); a corner outside the image has a zero flag.
-struct BlendBf16 {
-  int i00, i01, i10, i11;
-  float v00, v01, v10, v11;   // 1 inside, 0 outside
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// until the phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_5d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5, %6}], [%7];\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(c4), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// the consumer warps only (barrier 0 is __syncthreads')
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kCThreads) : "memory");
+}
+
+// One sample's corners: the top-left corner and JAX's bf16 weights, fy,
+// fx = bf16(fraction), wy0, wx0 = bf16(1 - f).
+struct TapBf16 {
+  int y0, x0;
   float fy, wy0, fx, wx0;
 };
 
-__device__ __forceinline__ BlendBf16 blend_bf16(float ys, float xs, int H,
-                                                int W) {
+__device__ __forceinline__ TapBf16 tap_bf16(float ys, float xs, int H,
+                                            int W) {
   // as in corners(): clamping far-outside coordinates changes nothing
+  // (every corner stays outside, so the sample is 0 either way)
   ys = fminf(fmaxf(ys, -2.f), (float)H + 1.f);
   xs = fminf(fmaxf(xs, -2.f), (float)W + 1.f);
   const float y0f = floorf(ys), x0f = floorf(xs);
-  BlendBf16 r;
-  r.fy = bf16r(ys - y0f);
-  r.fx = bf16r(xs - x0f);
-  r.wy0 = bf16r(1.f - r.fy);
-  r.wx0 = bf16r(1.f - r.fx);
-  const int y0 = (int)y0f, x0 = (int)x0f;
-  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
-  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
-  const int yc0 = min(max(y0, 0), H - 1), yc1 = min(max(y0 + 1, 0), H - 1);
-  const int xc0 = min(max(x0, 0), W - 1), xc1 = min(max(x0 + 1, 0), W - 1);
-  r.v00 = vy0 && vx0 ? 1.f : 0.f;
-  r.v01 = vy0 && vx1 ? 1.f : 0.f;
-  r.v10 = vy1 && vx0 ? 1.f : 0.f;
-  r.v11 = vy1 && vx1 ? 1.f : 0.f;
-  r.i00 = yc0 * W + xc0;
-  r.i01 = yc0 * W + xc1;
-  r.i10 = yc1 * W + xc0;
-  r.i11 = yc1 * W + xc1;
-  return r;
+  TapBf16 t;
+  const uint32_t f = pack_bf16(ys - y0f, xs - x0f);
+  t.fy = lo_bf16(f);
+  t.fx = hi_bf16(f);
+  const uint32_t h = pack_bf16(1.f - t.fy, 1.f - t.fx);
+  t.wy0 = lo_bf16(h);
+  t.wx0 = hi_bf16(h);
+  t.y0 = (int)y0f;
+  t.x0 = (int)x0f;
+  return t;
 }
 
-// JAX's sample from the four corner values (bf16, widened): the rows
-// blended at each corner column, then the columns, each rounded to bf16.
-__device__ __forceinline__ float sample_bf16(const BlendBf16& r, float c00,
+// JAX's sample of 4 channels from their corners (4 packed bf16 each, zero
+// outside the image): the rows blended at each corner column, then the
+// columns, each rounded to bf16; returned as 4 packed bf16.
+__device__ __forceinline__ uint2 blend4_bf16(const TapBf16& t, uint2 c00,
+                                             uint2 c01, uint2 c10,
+                                             uint2 c11) {
+  uint32_t o[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const uint32_t a00 = h ? c00.y : c00.x, a01 = h ? c01.y : c01.x;
+    const uint32_t a10 = h ? c10.y : c10.x, a11 = h ? c11.y : c11.x;
+    // (row blend at column x0, at x0 + 1) of each channel, rounded
+    const uint32_t rl = pack_bf16(t.wy0 * lo_bf16(a00) + t.fy * lo_bf16(a10),
+                                  t.wy0 * lo_bf16(a01) + t.fy * lo_bf16(a11));
+    const uint32_t rh = pack_bf16(t.wy0 * hi_bf16(a00) + t.fy * hi_bf16(a10),
+                                  t.wy0 * hi_bf16(a01) + t.fy * hi_bf16(a11));
+    o[h] = pack_bf16(t.wx0 * lo_bf16(rl) + t.fx * hi_bf16(rl),
+                     t.wx0 * lo_bf16(rh) + t.fx * hi_bf16(rh));
+  }
+  return make_uint2(o[0], o[1]);
+}
+
+// the same for one channel, as a float (exactly a bf16 value)
+__device__ __forceinline__ float blend1_bf16(const TapBf16& t, float c00,
                                              float c01, float c10,
                                              float c11) {
-  const float r0 = bf16r(r.wy0 * (c00 * r.v00) + r.fy * (c10 * r.v10));
-  const float r1 = bf16r(r.wy0 * (c01 * r.v01) + r.fy * (c11 * r.v11));
-  return bf16r(r.wx0 * r0 + r.fx * r1);
+  const float r0 = bf16r(t.wy0 * c00 + t.fy * c10);
+  const float r1 = bf16r(t.wy0 * c01 + t.fy * c11);
+  return bf16r(t.wx0 * r0 + t.fx * r1);
 }
 
-__device__ __forceinline__ void unpack4(uint2 v, float* f) {
-  const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&v.x);
-  const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&v.y);
-  f[0] = __low2float(a);
-  f[1] = __high2float(a);
-  f[2] = __low2float(b);
-  f[3] = __high2float(b);
+// the slotted window: pixel wp's 8-byte slot of channels 4s..4s+3
+__device__ __forceinline__ int win_slot(int wp, int s) {
+  return wp * kWStride + s * 8;
+}
+
+// channel plane c's element at image (y, x), 0 outside the image (a
+// device-memory corner)
+__device__ __forceinline__ uint32_t x_at(const unsigned short* xc, int y,
+                                         int x, int H, int W) {
+  return y >= 0 && y < H && x >= 0 && x < W
+      ? (uint32_t)__ldg(xc + (size_t)y * W + x) : 0u;
 }
 
 struct ArgsBf16 {
-  const __nv_bfloat16* xg;   // (B, G, HW, Cg)
-  const float* off;          // (B, G * 18, HW)
-  const uint2* wfrag;        // B fragments, see deform_prep_bf16_kernel
-  float* out;                // (B, Cout, HW)
-  int C, H, W, G, Cg, cout, pad, ngc;
+  const __nv_bfloat16* x;   // (B, C, H, W)
+  const float* off;         // (B, G * 18, H, W)
+  const __nv_bfloat16* w;   // (Cout, C, 3, 3)
+  float* out;               // (B, Cout, H, W)
+  int B, C, H, W, G, Cg, cout, pad, ngc, stages, items;
 };
 
-// kCg: 4 (TRACE) or 0 (read at run time); Cg % 4 == 0 gathers 8-byte
-// quads, other Cg scalars. kVec: floats per cp.async of the offsets.
-template <int kCg, int kVec>
-__global__ void __launch_bounds__(kThreads, 3)
-deform_conv_bf16_kernel(ArgsBf16 a) {
-  extern __shared__ float4 smem4[];
-  uint2* wf = reinterpret_cast<uint2*>(smem4);               // [3][kWFragB]
-  __nv_bfloat16* samp =
-      reinterpret_cast<__nv_bfloat16*>(wf + 3 * kWFragB);   // [2][kPix][40]
-  float* obuf = reinterpret_cast<float*>(samp + 2 * kPix * kSStride);
+// kCg: 4 (TRACE) or 0 (read at run time); Cg % 4 == 0 reads 4-channel
+// slots, other Cg single channels. kTma: the producer's loads are TMA
+// (else its lanes copy).
+template <int kCg, bool kTma>
+__global__ void __launch_bounds__(kBfThreads, 1)
+deform_bf16_persistent_kernel(const __grid_constant__ CUtensorMap tm_off,
+                              const __grid_constant__ CUtensorMap tm_x,
+                              const ArgsBf16 a) {
+  // aligned by pointer arithmetic: the compiler then keeps the pointers
+  // in the shared space (LDS / STS, not generic loads and stores)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((128 - (smem_addr(smem_raw) & 127)) & 127);
+  const int S = a.stages;
+  const BfLayout L = bf_layout(a.ngc, S);
+  const uint32_t bars = smem_addr(smem + L.bars);   // 8 bytes each
+  const uint32_t wfull = bars + 16 * S, wempty = wfull + 8;
+  uint2* frag = reinterpret_cast<uint2*>(smem + L.frag);
+  __nv_bfloat16* samp = reinterpret_cast<__nv_bfloat16*>(smem + L.samp);
+  unsigned char* win = smem + L.win;
+  const unsigned short* planar =
+      reinterpret_cast<const unsigned short*>(smem + L.planar);
+  float* ring = reinterpret_cast<float*>(smem + L.stages);
 
   const int Cg = kCg ? kCg : a.Cg;
-  const bool quad = Cg % 4 == 0;
   const int HW = a.H * a.W;
   const int tiles_w = (a.W + kTW - 1) / kTW;
-  const int ty0 = blockIdx.x / tiles_w * kTH;
-  const int tx0 = (blockIdx.x % tiles_w) * kTW;
-  const int b = blockIdx.y;
-  const int co0 = blockIdx.z * kN;
+  const int tiles = tiles_w * ((a.H + kTH - 1) / kTH);
+  const int per_z = a.B * tiles;
   const int ncb = (a.C + kCols - 1) / kCols;
-  const int nc = kTaps * ncb;
+  const int stage_floats = a.ngc * 2 * kPix;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int g8 = lane >> 2, t4 = lane & 3;
-  const float* offb = a.off + (size_t)b * a.G * 2 * kTaps * HW;
-  const __nv_bfloat16* xb = a.xg + (size_t)b * a.G * HW * Cg;
-  const uint2* wsrc = a.wfrag + (size_t)blockIdx.z * nc * kWFragB;
 
-  auto load = [&](int c) {
-    const int k = c / ncb, cb = c - k * ncb;
-    const int g_first = cb * kCols / Cg;
-    const int g_last = (min(a.C, cb * kCols + kCols) - 1) / Cg;
-    float* dst = obuf + (c & 1) * 2 * a.ngc * kPix;
-    const int per_plane = kPix / kVec;
-    const int n = (g_last - g_first + 1) * 2 * per_plane;
-    for (int i = tid; i < n; i += kThreads) {
-      const int plane = i / per_plane;
-      const int e = (i - plane * per_plane) * kVec;
-      const int ch = ((g_first + plane / 2) * kTaps + k) * 2 + (plane & 1);
-      const int y = ty0 + e / kTW, x = tx0 + e % kTW;
-      const bool ok = y < a.H && x < a.W;
-      cp_async<4 * kVec>(smem_addr(dst + plane * kPix + e),
-                         ok ? offb + (size_t)ch * HW + y * a.W + x : a.off,
-                         ok);
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(bars + 8 * s, kTma ? 1 : 32);        // full
+      mbar_init(bars + 8 * (S + s), kCW);            // empty
     }
-    for (int i = tid; i < kWFragB / 2; i += kThreads) {   // 16 B a copy
-      cp_async<16>(smem_addr(wf + (c % 3) * kWFragB + 2 * i),
-                   wsrc + (size_t)c * kWFragB + 2 * i, true);
-    }
-  };
+    mbar_init(wfull, kTma ? 1 : 32);
+    mbar_init(wempty, kCW);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
 
-  auto sample = [&](int c) {
-    const int k = c / ncb, cb = c - k * ncb;
-    const int ky = k / 3, kx = k - ky * 3;
-    const int g_first = cb * kCols / Cg;
-    const float* ob = obuf + (c & 1) * 2 * a.ngc * kPix;
-    __nv_bfloat16* sc = samp + (c & 1) * kPix * kSStride;
-    const int px = tid % kPix;
-    const float yb = (float)(ty0 + px / kTW + ky - a.pad);
-    const float xb0 = (float)(tx0 + px % kTW + kx - a.pad);
-    if (quad) {
-#pragma unroll
-      for (int j = 0; j < kCols / 4 / (kThreads / kPix); ++j) {
-        const int q = tid / kPix + j * (kThreads / kPix);
-        const int ci = cb * kCols + 4 * q;
-        float s[4] = {0.f, 0.f, 0.f, 0.f};
-        if (ci < a.C) {
-          const int g = ci / Cg;
-          const float* og = ob + (g - g_first) * 2 * kPix + px;
-          const BlendBf16 r =
-              blend_bf16(yb + og[0], xb0 + og[kPix], a.H, a.W);
-          const uint2* xq = reinterpret_cast<const uint2*>(
-              xb + (size_t)g * HW * Cg + (ci - g * Cg));
-          const int st = Cg / 4;
-          float c00[4], c01[4], c10[4], c11[4];
-          unpack4(__ldg(xq + (size_t)r.i00 * st), c00);
-          unpack4(__ldg(xq + (size_t)r.i01 * st), c01);
-          unpack4(__ldg(xq + (size_t)r.i10 * st), c10);
-          unpack4(__ldg(xq + (size_t)r.i11 * st), c11);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            s[e] = sample_bf16(r, c00[e], c01[e], c10[e], c11[e]);
+  if (warp >= kCW) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (warp != kCW) return;
+    // ---- the producer warp: per block, the window, then the 9 stages
+    int s = 0;
+    uint32_t sph = 0, wph = 0;
+    for (int it = blockIdx.x; it < a.items; it += gridDim.x) {
+      const int z = it / per_z, r = it - z * per_z;
+      const int b = r / tiles, t = r - b * tiles;
+      const int ty0 = t / tiles_w * kTH, tx0 = (t % tiles_w) * kTW;
+      for (int cb = 0; cb < ncb; ++cb) {
+        if (!(kSkip & 4)) {
+          mbar_wait(wempty, wph ^ 1);
+          if (kTma) {
+            if (lane == 0) {
+              mbar_expect_tx(wfull, kPlanarBytes);
+              tma_load_4d(smem_addr(planar), &tm_x, wfull, tx0 - kEx,
+                          ty0 - kEy, cb * kCols, b);
+            }
+          } else {
+            const unsigned short* xs =
+                reinterpret_cast<const unsigned short*>(a.x);
+            unsigned short* dst = const_cast<unsigned short*>(planar);
+            for (int i = lane; i < kCols * kWPix; i += 32) {
+              const int ch = i / kWPix, wp = i - ch * kWPix;
+              const int c = cb * kCols + ch;
+              dst[i] = c < a.C
+                  ? (unsigned short)x_at(xs + ((size_t)b * a.C + c) * HW,
+                                         ty0 - kEy + wp / kWC,
+                                         tx0 - kEx + wp % kWC, a.H, a.W)
+                  : (unsigned short)0;
+            }
+            mbar_arrive(wfull);
+          }
+          wph ^= 1;
+        }
+        const int bg0 = b * a.G + cb * kCols / Cg;
+        for (int k = 0; k < kTaps; ++k) {
+          const uint32_t full = bars + 8 * s, empty = bars + 8 * (S + s);
+          float* dst = ring + s * stage_floats;
+          mbar_wait(empty, sph ^ 1);
+          if (kSkip & 16) {   // no offsets: the consumers alone
+            if (lane == 0) mbar_arrive(full);
+          } else if (kTma) {
+            if (lane == 0) {
+              mbar_expect_tx(full, stage_floats * 4);
+              tma_load_5d(smem_addr(dst), &tm_off, full, tx0, ty0, 0, k,
+                          bg0);
+            }
+          } else {
+            for (int i = lane; i < stage_floats; i += 32) {
+              const int pl = i / kPix, e = i - pl * kPix;
+              const int y = ty0 + e / kTW, x = tx0 + e % kTW;
+              const int bg = bg0 + (pl >> 1);
+              dst[i] = bg < a.B * a.G && y < a.H && x < a.W
+                  ? __ldg(a.off + ((size_t)bg * 2 * kTaps + 2 * k + (pl & 1))
+                          * HW + (size_t)y * a.W + x)
+                  : 0.f;
+            }
+            mbar_arrive(full);
+          }
+          if (++s == S) {
+            s = 0;
+            sph ^= 1;
           }
         }
-        *reinterpret_cast<uint2*>(sc + px * kSStride + 4 * q) =
-            make_uint2(pack_bf16(s[0], s[1]), pack_bf16(s[2], s[3]));
       }
-    } else {
-      for (int j = 0; j < kCols / (kThreads / kPix); ++j) {
-        const int col = tid / kPix + j * (kThreads / kPix);
-        const int ci = cb * kCols + col;
-        float v = 0.f;
-        if (ci < a.C) {
-          const int g = ci / Cg;
-          const float* og = ob + (g - g_first) * 2 * kPix + px;
-          const BlendBf16 r =
-              blend_bf16(yb + og[0], xb0 + og[kPix], a.H, a.W);
-          const __nv_bfloat16* xc = xb + (size_t)g * HW * Cg + (ci - g * Cg);
-          v = sample_bf16(r, __bfloat162float(xc[(size_t)r.i00 * Cg]),
-                          __bfloat162float(xc[(size_t)r.i01 * Cg]),
-                          __bfloat162float(xc[(size_t)r.i10 * Cg]),
-                          __bfloat162float(xc[(size_t)r.i11 * Cg]));
-        }
-        sc[px * kSStride + col] = __float2bfloat16_rn(v);
+    }
+    return;
+  }
+
+  // ---- the consumer warps: each samples the 16 pixels of its MMAs, so a
+  // tap needs no barrier between its samples and its MMAs
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int g8 = lane >> 2, t4 = lane & 3;
+  const int mrow = warp * 16;              // the warp's 16 pixels
+  const int px = mrow + (lane & 15);       // the pixel this thread samples
+  const int c0 = lane >> 4;   // its first quad (Cg % 4 == 0) or column
+  const bool quad = Cg % 4 == 0;
+  const uint32_t sa = smem_addr(samp + (mrow + (lane & 15)) * kSStride +
+                                (lane >> 4) * 8);   // the warp's ldmatrix
+  int s = 0;
+  uint32_t sph = 0, wph = 0;
+  int fz = -1, fcb = -1;   // the (z, block) whose fragments are in frag
+  float acc[4][4];
+
+  // the B fragments of (z, block): b0 = (W[co][ci], W[co][ci + 1]), b1 =
+  // (W[co][ci + 8], W[co][ci + 9]) for each tap, k step ks, n8 tile nt and
+  // lane: co = z*32 + nt*8 + lane/4, ci = cb*32 + ks*16 + 2*(lane%4); zero
+  // past C and Cout
+  auto build_frags = [&](int z, int cb) {
+    for (int i = tid; i < kTaps * kWFragB; i += kCThreads) {
+      const int ln = i & 31, nt = (i >> 5) & 3, ks = (i >> 7) & 1;
+      const int k = i >> 8;
+      const int co = z * kN + nt * 8 + (ln >> 2);
+      const int ci = cb * kCols + ks * 16 + 2 * (ln & 3);
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = ci + (j & 1) + (j >> 1) * 8;
+        v[j] = co < a.cout && c < a.C
+            ? __bfloat162float(a.w[((size_t)co * a.C + c) * kTaps + k])
+            : 0.f;
       }
+      frag[i] = make_uint2(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]));
+    }
+    fz = z;
+    fcb = cb;
+  };
+
+  // the planar window -> its 4-channel slots
+  auto slot_window = [&]() {
+    if (kSkip & 4) return;
+    mbar_wait(wfull, wph);
+    unsigned char* dst = win;
+    for (int u = tid; u < kWPix * (kCols / 4); u += kCThreads) {
+      const int sl = u / kWPix, wp = u - sl * kWPix;
+      const unsigned short* p = planar + 4 * sl * kWPix + wp;
+      *reinterpret_cast<uint2*>(dst + win_slot(wp, sl)) = make_uint2(
+          p[0] | ((uint32_t)p[kWPix] << 16),
+          p[2 * kWPix] | ((uint32_t)p[3 * kWPix] << 16));
     }
   };
 
-  float acc[4][4] = {};
-  // S[c & 1] . W -> acc: this warp's 16 pixels, 4 n8 tiles, k steps of 16
-  auto contract = [&](int c) {
-    const int cb = c % ncb;
-    const int nks = (min(kCols, a.C - cb * kCols) + 15) / 16;
-    // ldmatrix: lanes 0-15 rows 0-15 at k 0, lanes 16-31 the same at k 8:
-    // a0 (rows 0-7, k 0-7), a1 (8-15, 0-7), a2 (0-7, 8-15), a3 (8-15, 8-15)
-    const uint32_t sa = smem_addr(samp + (c & 1) * kPix * kSStride +
-                                  (warp * 16 + (lane & 15)) * kSStride +
-                                  (lane >> 4) * 8);
-    const uint2* wd = wf + (c % 3) * kWFragB + lane;
+  auto release_planar = [&]() {
+    if (kSkip & 4) return;
+    if (lane == 0) mbar_arrive(wempty);
+    wph ^= 1;
+  };
+
+  // S[k & 1] . W[tap k] -> acc: the warp's 16 pixels, 4 n8 tiles, k steps
+  // of 16. ldmatrix: lanes 0-15 rows 0-15 at k 0, lanes 16-31 the same at
+  // k 8: a0 (rows 0-7, k 0-7), a1 (8-15, 0-7), a2 (0-7, 8-15), a3 (8-15,
+  // 8-15)
+  auto contract = [&](int k, int nks) {
+    const uint2* wd = frag + k * kWFragB + lane;
+    const uint32_t sk = sa + (k & 1) * kPix * kSStride * 2;
     for (int ks = 0; ks < nks; ++ks) {
       uint32_t af[4];
-      ldmatrix_x4(sa + ks * 16 * 2, af);
+      ldmatrix_x4(sk + ks * 16 * 2, af);
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt) {
         const uint2 bw = wd[(ks * 4 + nt) * 32];
+        if (kSkip & 2) {   // keep the operands' loads live
+          acc[nt][0] += __uint_as_float(bw.x ^ af[nt]);
+          continue;
+        }
         mma_bf16(acc[nt], af, bw.x, bw.y);
       }
     }
   };
 
-  load(0);
-  cp_commit();
-  if (nc > 1) load(1);
-  cp_commit();
-  cp_wait<1>();
-  __syncthreads();
-  sample(0);
-  for (int c = 0; c < nc; ++c) {
-    cp_wait<0>();
-    __syncthreads();
-    if (c + 2 < nc) load(c + 2);
-    cp_commit();
-    if (c + 1 < nc) sample(c + 1);
-    contract(c);
-  }
+  for (int it = blockIdx.x; it < a.items; it += gridDim.x) {
+    const int z = it / per_z, r = it - z * per_z;
+    const int b = r / tiles, t = r - b * tiles;
+    const int ty0 = t / tiles_w * kTH, tx0 = (t % tiles_w) * kTW;
+    const int wy = ty0 - kEy, wx = tx0 - kEx;   // the window's origin
+    const unsigned short* xb =
+        reinterpret_cast<const unsigned short*>(a.x) + (size_t)b * a.C * HW;
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+    }
 
-  float* ob = a.out + (size_t)b * a.cout * HW;
+    for (int cb = 0; cb < ncb; ++cb) {
+      // every warp is done with the last block's window, S and fragments
+      if (fz >= 0) consumer_sync();
+      if (z != fz || cb != fcb) build_frags(z, cb);
+      slot_window();
+      // the slots and fragments are written; the planar window is read
+      consumer_sync();
+      release_planar();
+      const unsigned char* wn = win;
+      const int g_first = cb * kCols / Cg;
+      const int nks = (min(kCols, a.C - cb * kCols) + 15) / 16;
+
+      for (int k = 0; k < kTaps; ++k) {
+        // the last tap's MMAs first: they overlap this tap's sampling
+        if (k > 0) contract(k - 1, nks);
+        const int ky = k / 3, kx = k - ky * 3;
+        const float* st = ring + s * stage_floats;
+        __nv_bfloat16* sc = samp + (k & 1) * kPix * kSStride;
+        const float yb = (float)(ty0 + px / kTW + ky - a.pad);
+        const float xb0 = (float)(tx0 + px % kTW + kx - a.pad);
+        mbar_wait(bars + 8 * s, sph);
+        if (kSkip & 8) {
+          // no samples: the stream of stages and the MMAs alone
+        } else if (quad) {
+          // the lane's 4 units at once, without branches between them:
+          // coefficients, window loads, the (rare) misses, blends
+          TapBf16 tp[4];
+          int wp[4];
+          uint32_t miss = 0;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+          for (int j = 0; j < 4; ++j) {
+            const int ci = cb * kCols + 4 * (c0 + 2 * j);
+            const float* og =
+                st + (min(ci, a.C - 1) / Cg - g_first) * 2 * kPix + px;
+            tp[j] = tap_bf16(yb + og[0], xb0 + og[kPix], a.H, a.W);
+            const int ly = tp[j].y0 - wy, lx = tp[j].x0 - wx;
+            const bool hit = (unsigned)ly < (unsigned)(kWR - 1) &&
+                             (unsigned)lx < (unsigned)(kWC - 1);
+            wp[j] = hit ? ly * kWC + lx : 0;
+            if (!hit && ci < a.C) miss |= 1u << j;
+          }
+          uint2 c[4][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int px = warp * 16 + g8 + (r >> 1) * 8;
-      const int y = ty0 + px / kTW, x = tx0 + px % kTW;
-      const int co = co0 + nt * 8 + 2 * t4 + (r & 1);
-      if (y < a.H && x < a.W && co < a.cout) {
-        ob[(size_t)co * HW + y * a.W + x] = acc[nt][r];
+          for (int j = 0; j < 4; ++j) {
+            const int q = c0 + 2 * j;
+            if (kSkip & 1) {   // the corners' weights stand in
+              c[j][0] = c[j][1] = make_uint2(__float_as_uint(tp[j].fy), wp[j]);
+              c[j][2] = c[j][3] = make_uint2(__float_as_uint(tp[j].fx), q);
+              continue;
+            }
+            const unsigned char* w0 = wn + win_slot(wp[j], q);
+            c[j][0] = *reinterpret_cast<const uint2*>(w0);
+            c[j][1] = *reinterpret_cast<const uint2*>(w0 + kWStride);
+            c[j][2] = *reinterpret_cast<const uint2*>(w0 + kWC * kWStride);
+            c[j][3] =
+                *reinterpret_cast<const uint2*>(w0 + (kWC + 1) * kWStride);
+          }
+          if (!(kSkip & 1) && __any_sync(0xffffffffu, miss)) {
+            // corners outside the window: from device memory, masked
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (!((miss >> j) & 1)) continue;
+              const int ci = cb * kCols + 4 * (c0 + 2 * j);
+              const unsigned short* xc = xb + (size_t)ci * HW;
+              const int y0 = tp[j].y0, x0 = tp[j].x0;
+              uint32_t v[4][4];   // [corner][channel]
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                const unsigned short* p = xc + (size_t)e * HW;
+                v[0][e] = x_at(p, y0, x0, a.H, a.W);
+                v[1][e] = x_at(p, y0, x0 + 1, a.H, a.W);
+                v[2][e] = x_at(p, y0 + 1, x0, a.H, a.W);
+                v[3][e] = x_at(p, y0 + 1, x0 + 1, a.H, a.W);
+              }
+#pragma unroll
+              for (int n = 0; n < 4; ++n) {
+                c[j][n] = make_uint2(v[n][0] | v[n][1] << 16,
+                                     v[n][2] | v[n][3] << 16);
+              }
+            }
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int q = c0 + 2 * j;
+            const uint2 sv = cb * kCols + 4 * q < a.C
+                ? blend4_bf16(tp[j], c[j][0], c[j][1], c[j][2], c[j][3])
+                : make_uint2(0u, 0u);
+            *reinterpret_cast<uint2*>(sc + px * kSStride + 4 * q) = sv;
+          }
+        } else {
+          // Cg % 4 != 0: a sample a (pixel, channel)
+          for (int col = c0; col < kCols; col += 2) {
+            const int ci = cb * kCols + col;
+            float v = 0.f;
+            if (ci < a.C) {
+              const float* og = st + (ci / Cg - g_first) * 2 * kPix + px;
+              const TapBf16 tp =
+                  tap_bf16(yb + og[0], xb0 + og[kPix], a.H, a.W);
+              const int ly = tp.y0 - wy, lx = tp.x0 - wx;
+              float cv[4];
+              if (kSkip & 1) {
+                cv[0] = cv[1] = tp.fy;
+                cv[2] = cv[3] = __int_as_float(ly + lx);
+              } else if ((unsigned)ly < (unsigned)(kWR - 1) &&
+                         (unsigned)lx < (unsigned)(kWC - 1)) {
+                const unsigned short* w0 =
+                    reinterpret_cast<const unsigned short*>(
+                        wn + win_slot(ly * kWC + lx, 0)) + col;
+                cv[0] = lo_bf16(w0[0]);
+                cv[1] = lo_bf16(w0[kWStride / 2]);
+                cv[2] = lo_bf16(w0[kWC * kWStride / 2]);
+                cv[3] = lo_bf16(w0[(kWC + 1) * kWStride / 2]);
+              } else {
+                const unsigned short* xc = xb + (size_t)ci * HW;
+                cv[0] = lo_bf16(x_at(xc, tp.y0, tp.x0, a.H, a.W));
+                cv[1] = lo_bf16(x_at(xc, tp.y0, tp.x0 + 1, a.H, a.W));
+                cv[2] = lo_bf16(x_at(xc, tp.y0 + 1, tp.x0, a.H, a.W));
+                cv[3] = lo_bf16(x_at(xc, tp.y0 + 1, tp.x0 + 1, a.H, a.W));
+              }
+              v = blend1_bf16(tp, cv[0], cv[1], cv[2], cv[3]);
+            }
+            sc[px * kSStride + col] = __float2bfloat16_rn(v);
+          }
+        }
+        __syncwarp();   // the warp's rows of S[k & 1] are complete, the
+                        // stage is read
+        if (lane == 0) mbar_arrive(bars + 8 * (S + s));
+        if (++s == S) {
+          s = 0;
+          sph ^= 1;
+        }
+      }
+      contract(kTaps - 1, nks);
+
+      if (cb == ncb - 1) {
+        // acc[nt]: 0 (pixel g, co 2t), 1 (g, 2t+1), 2 (g+8, 2t), 3 (g+8,
+        // 2t+1)
+        float* ob = a.out + (size_t)b * a.cout * HW;
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int p = mrow + g8 + (q >> 1) * 8;
+            const int y = ty0 + p / kTW, x = tx0 + p % kTW;
+            const int co = z * kN + nt * 8 + 2 * t4 + (q & 1);
+            if (y < a.H && x < a.W && co < a.cout) {
+              ob[(size_t)co * HW + y * a.W + x] = acc[nt][q];
+            }
+          }
+        }
       }
     }
   }
 }
 
-template <int kCg, int kVec>
-int launch_bf16(const ArgsBf16& a, dim3 grid, size_t smem,
+template <int kCg, bool kTma>
+int launch_bf16(const CUtensorMap& tm_off, const CUtensorMap& tm_x,
+                const ArgsBf16& a, int ctas, size_t smem,
                 cudaStream_t stream) {
-  // 43,008 bytes at TRACE's shape; past 48 KB (many groups of one
-  // channel) the limit is raised once per device, as for the f32 kernel
+  // raise the kernel's shared-memory limit once per device, as for the
+  // f32 kernel
   static size_t smem_set[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   if (smem > 48 * 1024 && (dev >= 64 || smem_set[dev] < smem)) {
-    err = cudaFuncSetAttribute(deform_conv_bf16_kernel<kCg, kVec>,
+    err = cudaFuncSetAttribute(deform_bf16_persistent_kernel<kCg, kTma>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (dev < 64) smem_set[dev] = smem;
   }
-  deform_conv_bf16_kernel<kCg, kVec><<<grid, kThreads, smem, stream>>>(a);
+  deform_bf16_persistent_kernel<kCg, kTma>
+      <<<ctas, kBfThreads, smem, stream>>>(tm_off, tm_x, a);
   return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  static bool tried = false;
+  if (!tried) {
+    tried = true;
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// The tensor maps of the TMA path: the offsets as 5D (W, H, dy|dx, tap,
+// B * G) in boxes of (16, 8, 2, 1, ngc), x as 4D (W, H, C, B) in boxes of
+// the window (kWC, kWR, 32, 1); zero outside.
+int encode_maps(const ArgsBf16& a, CUtensorMap* tm_off, CUtensorMap* tm_x) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t hw = (cuuint64_t)a.H * a.W;
+  const cuuint64_t odim[5] = {(cuuint64_t)a.W, (cuuint64_t)a.H, 2, kTaps,
+                              (cuuint64_t)a.B * a.G};
+  const cuuint64_t ostride[4] = {(cuuint64_t)a.W * 4, hw * 4, 2 * hw * 4,
+                                 2 * kTaps * hw * 4};
+  const cuuint32_t obox[5] = {kTW, kTH, 2, 1, (cuuint32_t)a.ngc};
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  CUresult r = enc(tm_off, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 5,
+                   const_cast<float*>(a.off), odim, ostride, obox, ones,
+                   CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                   CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
+  const cuuint64_t xdim[4] = {(cuuint64_t)a.W, (cuuint64_t)a.H,
+                              (cuuint64_t)a.C, (cuuint64_t)a.B};
+  const cuuint64_t xstride[3] = {(cuuint64_t)a.W * 2, hw * 2,
+                                 (cuuint64_t)a.C * hw * 2};
+  const cuuint32_t xbox[4] = {kWC, kWR, kCols, 1};
+  r = enc(tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+          const_cast<__nv_bfloat16*>(a.x), xdim, xstride, xbox, ones,
+          CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+          CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // ------------------------------------------------------------ backward --
@@ -1585,50 +2032,62 @@ extern "C" int romp_deform_conv2d_f32(const float* x, const float* off,
              : launch<0, 1>(a, grid, smem, stream);
 }
 
-// The bf16 variant (see the header): x (b, c, h, w) and w (cout, c, 3, 3)
-// bf16, off (b, g*2*9, h, w) f32 -> out (b, cout, h, w) f32, all
-// contiguous; scratch: 16-byte aligned, ceil(cout/32) * 9 * ceil(c/32) *
-// 256 * 8 bytes of weight fragments, then b*c*h*w bf16 values of x
-// regrouped (ops/deform_conv.py `scratch_bytes_bf16`).
-extern "C" int romp_deform_conv2d_bf16(const void* x, const float* off,
-                                       const void* w, float* out,
-                                       void* scratch, int b, int c, int h,
-                                       int wd, int g, int cout, int pad,
-                                       cudaStream_t stream) {
+// The bf16 variant's launch plan (see bf_plan) for these shapes on `sms`
+// SMs: out[0..4] = ctas, items, stages, ngc, smem bytes. Returns
+// cudaErrorInvalidValue for shapes the kernel does not take.
+extern "C" int romp_deform_conv2d_bf16_plan(int b, int c, int h, int wd,
+                                            int g, int cout, int sms,
+                                            long long* out) {
+  BfPlan p;
   if (b <= 0 || c <= 0 || h <= 0 || wd <= 0 || g <= 0 || cout <= 0 ||
-      c % g != 0 || b > 65535 || (cout + kN - 1) / kN > 65535 ||
-      (long long)b * h * wd * c >= (1ll << 31) ||
-      reinterpret_cast<uintptr_t>(scratch) % 16 != 0) {
+      sms <= 0 || c % g != 0 || !bf_plan(b, c, h, wd, g, cout, sms, &p)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int cg = c / g;
-  const int hw = h * wd;
-  const int ncb = (c + kCols - 1) / kCols;
-  const int x_total = b * g * hw;
-  const int w_total = (cout + kN - 1) / kN * kTaps * ncb * kWFragB;
-  uint2* wfrag = reinterpret_cast<uint2*>(scratch);
-  auto* xg = reinterpret_cast<__nv_bfloat16*>(wfrag + w_total);
-  const int ngc = g < (kCols - 1) / cg + 2 ? g : (kCols - 1) / cg + 2;
-  const size_t smem = smem_bytes_bf16(ngc);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  deform_prep_bf16_kernel<<<(x_total + w_total + 255) / 256, 256, 0,
-                            stream>>>(
-      reinterpret_cast<const __nv_bfloat16*>(x), xg,
-      reinterpret_cast<const __nv_bfloat16*>(w), wfrag, hw, cg, x_total, c,
-      cout, ncb, w_total);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const long long v[5] = {p.ctas, p.items, p.stages, p.ngc, p.smem};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
 
-  const ArgsBf16 a{xg, off, wfrag, out, c, h, wd, g, cg, cout, pad, ngc};
-  const dim3 grid(((h + kTH - 1) / kTH) * ((wd + kTW - 1) / kTW), b,
-                  (cout + kN - 1) / kN);
-  const bool vec = wd % 4 == 0 && reinterpret_cast<uintptr_t>(off) % 16 == 0;
-  if (cg == 4) {
-    return vec ? launch_bf16<4, 4>(a, grid, smem, stream)
-               : launch_bf16<4, 1>(a, grid, smem, stream);
+// The bf16 variant (see the header): x (b, c, h, w) and w (cout, c, 3, 3)
+// bf16, off (b, g*2*9, h, w) f32 -> out (b, cout, h, w) f32, all
+// contiguous; at most one persistent CTA on each of `sms` SMs. One
+// launch, no scratch. Returns the cudaError_t of the launch
+// (cudaErrorInvalidValue for shapes the kernel does not take,
+// cudaErrorNotSupported where the driver has no cuTensorMapEncodeTiled).
+extern "C" int romp_deform_conv2d_bf16(const void* x, const float* off,
+                                       const void* w, float* out, int b,
+                                       int c, int h, int wd, int g, int cout,
+                                       int pad, int sms,
+                                       cudaStream_t stream) {
+  BfPlan p;
+  if (b <= 0 || c <= 0 || h <= 0 || wd <= 0 || g <= 0 || cout <= 0 ||
+      sms <= 0 || c % g != 0 ||
+      (long long)b * h * wd * (c > cout ? c : cout) >= (1ll << 31) ||
+      (long long)b * h * wd * g * 2 * kTaps >= (1ll << 31) ||
+      !bf_plan(b, c, h, wd, g, cout, sms, &p)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return vec ? launch_bf16<0, 4>(a, grid, smem, stream)
-             : launch_bf16<0, 1>(a, grid, smem, stream);
+  const ArgsBf16 a{static_cast<const __nv_bfloat16*>(x),
+                   off,
+                   static_cast<const __nv_bfloat16*>(w),
+                   out,
+                   b, c, h, wd, g, c / g, cout, pad,
+                   p.ngc, p.stages, p.items};
+  // TMA: 16-byte aligned bases and row strides (W % 8: x's bf16 rows)
+  const bool tma = wd % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(off) % 16 == 0;
+  CUtensorMap tm_off{}, tm_x{};
+  if (tma) {
+    const int err = encode_maps(a, &tm_off, &tm_x);
+    if (err != 0) return err;
+  }
+  if (c / g == 4) {
+    return tma ? launch_bf16<4, true>(tm_off, tm_x, a, p.ctas, p.smem, stream)
+               : launch_bf16<4, false>(tm_off, tm_x, a, p.ctas, p.smem,
+                                       stream);
+  }
+  return tma ? launch_bf16<0, true>(tm_off, tm_x, a, p.ctas, p.smem, stream)
+             : launch_bf16<0, false>(tm_off, tm_x, a, p.ctas, p.smem, stream);
 }
 
 // The backward's plan (see bwd_plan) for these shapes on `sms` SMs:

@@ -37,7 +37,11 @@ output is f32) take the kernel's bf16 variant and `deform_conv2d_plain`'s
 bf16 branch. Both round where JAX's `deform_conv2d` does on bf16 operands
 (`romp_tpu/ops/deform_conv.py:89-115`): the fractions and 1 - f to bf16,
 the blend of the two rows at each corner column to bf16, the blend of the
-two columns (the sample) to bf16; the weight product sums in f32.
+two columns (the sample) to bf16; the weight product sums in f32. The
+bf16 variant is one launch of persistent CTAs (`deform_bf16_plan`) that a
+producer warp feeds with the offsets and a window of x around each pixel
+tile; samples whose corners leave the window read them from device memory
+(`bf16_window_hit_share` counts those that do not).
 """
 from __future__ import annotations
 
@@ -54,8 +58,16 @@ TAPS = 9
 CHUNK_COLS = 32
 N_TILE = 32
 FRAGS = 4 * 4 * 32
-# csrc/deform_conv.cu: the backward's pixel tile (kTH x kTW)
+# csrc/deform_conv.cu: the pixel tile (kTH x kTW), a CTA's shared memory
 TILE_H, TILE_W = 8, 16
+MAX_SMEM = 232448
+# the bf16 kernel: x's window around a tile (kEy rows and kEx columns each
+# side) and its ring's stages at most (kMaxStages)
+BF16_WIN_EY, BF16_WIN_EX = 8, 8
+BF16_WIN_ROWS = TILE_H + 2 * BF16_WIN_EY
+BF16_WIN_COLS = TILE_W + 2 * BF16_WIN_EX
+BF16_MAX_STAGES = 8
+BF16_PLAN_KEYS = ("ctas", "items", "stages", "ngc", "smem")
 BWD_PLAN_KEYS = ("ctas", "ey", "ex", "wrows", "dw_smem", "smem",
                  "scratch_floats")
 BF16_GRAD = (
@@ -73,19 +85,67 @@ def deform_smem(G: int, Cg: int) -> int:
     return 3 * FRAGS * 16 + (2 * 128 * CHUNK_COLS + 2 * 2 * ngc * 128) * 4
 
 
-def deform_smem_bf16(G: int, Cg: int) -> int:
-    """csrc/deform_conv.cu `smem_bytes_bf16`: three chunks of bf16 B
-    fragments (256 x 8 bytes), two of bf16 samples (128 pixels x 40) and
-    two of the offset planes."""
-    ngc = min(G, (CHUNK_COLS - 1) // Cg + 2)
-    return 3 * 256 * 8 + 2 * 128 * (CHUNK_COLS + 8) * 2 + 2 * 2 * ngc * 128 * 4
+def deform_bf16_plan(B: int, C: int, H: int, W: int, G: int, Cout: int,
+                     sms: int) -> dict:
+    """csrc/deform_conv.cu `bf_plan` (`romp_deform_conv2d_bf16_plan`
+    returns the kernel's own): the work items (output-channel tile, frame,
+    16 x 8 pixel tile), `ctas` persistent CTAs (at most one an SM and one
+    an item), `ngc` groups whose offset planes a ring stage holds, and as
+    many `stages` (2 to 8) as fit the 232,448 bytes a CTA may take beside
+    the mbarriers, the 9 taps' B fragments, two taps of samples, the
+    slotted x window (72 bytes a pixel) and the planar one (`smem` bytes,
+    128 of them to align the base). Raises ValueError for shapes the
+    kernel does not take."""
+    if min(B, C, H, W, G, Cout, sms) <= 0 or C % G:
+        raise ValueError(f"deform_bf16_plan: no plan for B={B}, C={C}, "
+                         f"H={H}, W={W}, G={G}, Cout={Cout}, sms={sms}")
+    ngc = min(G, (CHUNK_COLS - 1) // (C // G) + 2)
+    items = -(-Cout // N_TILE) * B * -(-H // TILE_H) * -(-W // TILE_W)
+    pixels = BF16_WIN_ROWS * BF16_WIN_COLS
+    for stages in range(BF16_MAX_STAGES, 1, -1):
+        bars = -(-(2 * stages + 2) * 8 // 128) * 128
+        smem = (bars + TAPS * 256 * 8 + 2 * 128 * (CHUNK_COLS + 8) * 2
+                + pixels * (CHUNK_COLS * 2 + 8) + pixels * CHUNK_COLS * 2
+                + stages * ngc * 2 * 128 * 4 + 128)
+        if smem <= MAX_SMEM:
+            return dict(ctas=min(items, sms), items=items, stages=stages,
+                        ngc=ngc, smem=smem)
+    raise ValueError(f"deform_bf16_plan: C={C}, G={G} does not fit")
 
 
-def scratch_bytes_bf16(B: int, C: int, H: int, W: int, Cout: int) -> int:
-    """The bf16 variant's scratch: its weight fragments, then x regrouped
-    as (B, G, H*W, C/G) bf16."""
-    return (-(-Cout // N_TILE) * TAPS * -(-C // CHUNK_COLS) * 256 * 8
-            + 2 * B * C * H * W)
+def deform_bf16_work(plan: dict, B: int, H: int, W: int, cta: int) -> list:
+    """The work items CTA `cta` of `plan` takes, in its order: (z, frame,
+    tile row y0, tile column x0) of items i = cta, cta + ctas, ..., where
+    i = (z * B + frame) * tiles + tile."""
+    tiles_w = -(-W // TILE_W)
+    tiles = tiles_w * -(-H // TILE_H)
+    out = []
+    for i in range(cta, plan["items"], plan["ctas"]):
+        z, r = divmod(i, B * tiles)
+        b, t = divmod(r, tiles)
+        out.append((z, b, t // tiles_w * TILE_H, t % tiles_w * TILE_W))
+    return out
+
+
+def bf16_window_hit_share(offsets: torch.Tensor, deform_groups: int,
+                          padding: int = 1) -> float:
+    """The share of the bf16 kernel's samples (pixel, group, tap) whose four
+    corners lie in the x window of their pixel's tile (its 16 x 8 pixels
+    +- BF16_WIN_EY rows and +- BF16_WIN_EX columns, outside the image
+    included), by the kernel's rule on its clamped coordinates; the
+    others read their corners from device memory."""
+    B, _, H, W = offsets.shape
+    ys, xs = _sample_coords(offsets, deform_groups, H, W, padding)
+    y0 = torch.floor(ys.clamp(-2.0, H + 1.0))
+    x0 = torch.floor(xs.clamp(-2.0, W + 1.0))
+    dev = offsets.device
+    wy = (torch.arange(H, device=dev) // TILE_H * TILE_H
+          - BF16_WIN_EY).view(H, 1)
+    wx = (torch.arange(W, device=dev) // TILE_W * TILE_W
+          - BF16_WIN_EX).view(1, W)
+    hit = ((y0 >= wy) & (y0 < wy + BF16_WIN_ROWS - 1)
+           & (x0 >= wx) & (x0 < wx + BF16_WIN_COLS - 1))
+    return float(hit.float().mean())
 
 
 def scratch_floats(B: int, C: int, H: int, W: int, Cout: int) -> int:
@@ -428,19 +488,23 @@ def _deform_forward(x: torch.Tensor, offsets: torch.Tensor,
     out = torch.empty((B, Cout, H, W), dtype=torch.float32, device=x.device)
     if B == 0 or H * W == 0:
         return out
-    if bf16:
-        scratch = torch.empty(scratch_bytes_bf16(B, C, H, W, Cout),
-                              dtype=torch.uint8, device=x.device)
-        entry = "romp_deform_conv2d_bf16"
-    else:
-        scratch = torch.empty(scratch_floats(B, C, H, W, Cout),
-                              dtype=torch.float32, device=x.device)
-        entry = "romp_deform_conv2d_f32"
     with torch.cuda.device(x.device):
-        err = getattr(_build.load(), entry)(
-            x.data_ptr(), offsets.data_ptr(), weight.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), B, C, H, W, G, Cout, padding,
-            torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        if bf16:   # one launch, no scratch
+            entry = "romp_deform_conv2d_bf16"
+            sms = torch.cuda.get_device_properties(
+                x.device).multi_processor_count
+            err = _build.load().romp_deform_conv2d_bf16(
+                x.data_ptr(), offsets.data_ptr(), weight.data_ptr(),
+                out.data_ptr(), B, C, H, W, G, Cout, padding, sms, stream)
+        else:
+            entry = "romp_deform_conv2d_f32"
+            scratch = torch.empty(scratch_floats(B, C, H, W, Cout),
+                                  dtype=torch.float32, device=x.device)
+            err = _build.load().romp_deform_conv2d_f32(
+                x.data_ptr(), offsets.data_ptr(), weight.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), B, C, H, W, G, Cout,
+                padding, stream)
     _build.check(err, entry)
     deform_conv2d.launches += 1
     deform_conv2d.bf16_launches += bf16

@@ -1,29 +1,33 @@
 """Where the skinning and deform kernels' time goes, on one GPU.
 
     python -m romp_tpu_torch.utils.kernel_breakdown [--reps 30]
-        [--parts skinning skinning_bwd deform deform_bwd]
+        [--parts skinning skinning_bwd deform deform_bf16 deform_bwd]
         [--skin_bwd_n 512 4096] [--whole_only]
 
 Builds the kernel library once as it is and then with parts of the
 kernels left out (`-DROMP_LBS_SKIP`, `-DROMP_LBS_BWD_SKIP`,
 `-DROMP_DEFORM_SKIP` and `-DROMP_DEFORM_BWD_SKIP` masks, see csrc/lbs.cu
-and csrc/deform_conv.cu; only the first build's results are right), and
-times skinning at N = 4096 persons, V = 6890 (ROMP at batch 64 x 64
-slots), its backward at each N of `--skin_bwd_n` (512: the train steps'
-64 x 8 GT persons), the deform at TRACE's shape (B = 8, C = Cout = 32,
-128 x 128, G = 8) and its backward at the train step's clip (B = 10, the
-same widths) on seeded random operands. `--parts` keeps the builds that
-concern those kernels; `--whole_only` keeps the first build alone.
+and csrc/deform_conv.cu; the results of those builds are wrong) or
+other sizes of the bf16 deform (`-DROMP_DEFORM_BF16_EY`, its x window's
+rows; right results), and times skinning at N = 4096 persons, V = 6890 (ROMP at
+batch 64 x 64 slots), its backward at each N of `--skin_bwd_n` (512: the
+train steps' 64 x 8 GT persons), the deform at TRACE's shape (B = 8, C =
+Cout = 32, 128 x 128, G = 8; f32, and bf16 x and weight as
+`deform_bf16`, both with N(0, 2^2) offsets) and its backward at the
+train step's clip (B = 10, the same widths) on seeded random operands.
+`--parts` keeps the builds that concern those kernels; `--whole_only`
+keeps the first build alone.
 Times: CUDA events around `--reps` back-to-back calls, three times, after
 the card has run a matrix product for 0.3 s (a card that idled through a
 build starts at low clocks). Prints one JSON line per build: the three
 per-call times in us of each kernel the build concerns, and for the
-backwards also each of their kernels' mean device time in us
-(torch.profiler).
+backwards and the bf16 deform also each of their kernels' mean device
+time in us (torch.profiler).
 
-The skinning backward's rows name only `skinning_backward`, so the same
-file times another checkout's package (its parent's design, say) when
-that package comes first on the path:
+The skinning backward's and the bf16 deform's rows name only their
+wrappers and a prefix of their kernels' names, so the same file times
+another checkout's package (its parent's design, say) when that package
+comes first on the path:
     PYTHONPATH=<other checkout> python romp_tpu_torch/utils/kernel_breakdown.py
 """
 from __future__ import annotations
@@ -41,7 +45,7 @@ from romp_tpu_torch.ops.deform_conv import (
 from romp_tpu_torch.ops.lbs import skinning, skinning_backward
 from romp_tpu_torch.utils.chain_plans import device_events
 
-PARTS = ("skinning", "skinning_bwd", "deform", "deform_bwd")
+PARTS = ("skinning", "skinning_bwd", "deform", "deform_bf16", "deform_bwd")
 # (name, nvcc flag, the parts it concerns)
 BUILDS = (
     ("all", "", PARTS),
@@ -74,9 +78,22 @@ BUILDS = (
      ("skinning_bwd",)),
     ("skinning bwd: neither part", "-DROMP_LBS_BWD_SKIP=192",
      ("skinning_bwd",)),
-    ("deform: no gathers", "-DROMP_DEFORM_SKIP=1", ("deform",)),
-    ("deform: no MMAs", "-DROMP_DEFORM_SKIP=2", ("deform",)),
-    ("deform: neither", "-DROMP_DEFORM_SKIP=3", ("deform",)),
+    ("deform: no gathers", "-DROMP_DEFORM_SKIP=1",
+     ("deform", "deform_bf16")),
+    ("deform: no MMAs", "-DROMP_DEFORM_SKIP=2", ("deform", "deform_bf16")),
+    ("deform: neither", "-DROMP_DEFORM_SKIP=3", ("deform", "deform_bf16")),
+    ("deform bf16: no x window (no loads, no rewrite)",
+     "-DROMP_DEFORM_SKIP=4", ("deform_bf16",)),
+    ("deform bf16: none of the three", "-DROMP_DEFORM_SKIP=7",
+     ("deform_bf16",)),
+    ("deform bf16: the offsets' stream alone (no sampling, MMAs or window)",
+     "-DROMP_DEFORM_SKIP=14", ("deform_bf16",)),
+    ("deform bf16: no offsets' loads (the consumers alone)",
+     "-DROMP_DEFORM_SKIP=16", ("deform_bf16",)),
+    ("deform bf16: window rows +- 4", "-DROMP_DEFORM_BF16_EY=4",
+     ("deform_bf16",)),
+    ("deform bf16: window rows +- 6", "-DROMP_DEFORM_BF16_EY=6",
+     ("deform_bf16",)),
     ("deform bwd: no dx scatter", "-DROMP_DEFORM_BWD_SKIP=9",
      ("deform_bwd",)),
     ("deform bwd: no window flush", "-DROMP_DEFORM_BWD_SKIP=8",
@@ -90,6 +107,7 @@ BUILDS = (
      ("deform_bwd",)),
 )
 BWD_PREFIX = "deform_bwd_"   # in every backward kernel's name
+DEFORM_PREFIX = "deform_"    # in every deform kernel's name
 SKIN_BWD_PREFIX = "skinning_bwd_"
 
 
@@ -184,6 +202,13 @@ def main(argv=None) -> None:
         off = (torch.randn(8, 144, 128, 128, generator=g) * 2.0).to(dev)
         wd = (torch.randn(32, 32, 3, 3, generator=g) * 0.1).to(dev)
         calls["deform"] = lambda: deform_conv2d(x, off, wd, 8)
+    if "deform_bf16" in args.parts:
+        xh = torch.randn(8, 32, 128, 128, generator=g).to(
+            torch.bfloat16).to(dev)
+        offh = (torch.randn(8, 144, 128, 128, generator=g) * 2.0).to(dev)
+        wh = (torch.randn(32, 32, 3, 3, generator=g) * 0.1).to(
+            torch.bfloat16).to(dev)
+        calls["deform_bf16"] = lambda: deform_conv2d(xh, offh, wh, 8)
     if "deform_bwd" in args.parts:
         xb = torch.randn(10, 32, 128, 128, generator=g).to(dev)
         offb = (torch.randn(10, 144, 128, 128, generator=g) * 2.0).to(dev)
@@ -195,7 +220,7 @@ def main(argv=None) -> None:
     try:
         for name, flag, parts in selected_builds(args.parts,
                                                  args.whole_only):
-            _build.NVCC_FLAGS[:] = flags + ([flag] if flag else [])
+            _build.NVCC_FLAGS[:] = flags + flag.split()
             _build._lib = None
             _build.load()
             warm_clocks(dev)
@@ -211,6 +236,9 @@ def main(argv=None) -> None:
             if "deform_bwd" in parts:
                 row["deform_bwd_kernels_us"] = kernel_us(
                     calls["deform_bwd"], BWD_PREFIX)
+            if "deform_bf16" in parts:
+                row["deform_bf16_kernels_us"] = kernel_us(
+                    calls["deform_bf16"], DEFORM_PREFIX)
             print(json.dumps(row), flush=True)
     finally:
         _build.NVCC_FLAGS[:] = flags

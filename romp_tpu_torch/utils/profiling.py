@@ -59,7 +59,7 @@ KINDS = (
     ("skinning backward kernel", ("skinning_bwd_",)),
     ("deform backward kernel", ("deform_bwd_",)),
     ("deform kernel", ("deform_conv_tf32_kernel", "deform_prep_kernel",
-                       "deform_conv_bf16_kernel", "deform_prep_bf16_kernel")),
+                       "deform_bf16_persistent_kernel")),
     ("chain kernel", ("conv3x3_bn_act_mma_kernel", "ksplit_reduce_kernel",
                       "nchw_to_nhwc_bf16_kernel")),
     ("batch norm", ("bn_fw", "batch_norm")),

@@ -12,7 +12,9 @@ import jax.numpy as jnp
 from romp_tpu.ops.deform_conv import deform_conv2d as jax_deform
 from romp_tpu.ops.pallas_deform import deform_conv2d_pallas
 from romp_tpu_torch.ops.deform_conv import (
-    deform_conv2d, deform_conv2d_plain, deform_smem, scratch_floats,
+    BF16_WIN_EX, BF16_WIN_EY, bf16_window_hit_share, deform_bf16_plan,
+    deform_bf16_work, deform_conv2d, deform_conv2d_plain, deform_smem,
+    scratch_floats,
 )
 from romp_tpu_torch.ops.lbs import split_tf32_matmul
 
@@ -150,6 +152,71 @@ def test_deform_buffers(C, G):
     frags = -(-Cout // 32) * 9 * -(-C // 32) * 4 * 4 * 32 * 4
     assert scratch_floats(B, C, H, W, Cout) == frags + B * C * H * W
     assert frags % 4 == 0       # x's regrouped copy starts 16-byte aligned
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("C,G", [(32, 8), (16, 2), (12, 3), (40, 4), (64, 64),
+                                 (256, 8), (6, 6)])
+def test_deform_bf16_plan(C, G, sms):
+    """The bf16 kernel's launch plan (the mirror of csrc/deform_conv.cu
+    `bf_plan`; the card's tests hold it to the kernel's own): shared memory
+    within the 232,448 bytes a CTA may take for the group widths of
+    `test_deform_buffers`, with 2-8 ring stages (8 at TRACE's C = 32, G =
+    8: 209,280 bytes); a stage holds the offset planes of every group a
+    32-channel chunk touches; at most one CTA an SM and one an item; and
+    the CTAs' work items cover every (output-channel tile, frame, tile)
+    exactly once (ragged tiles: H = 21, W = 37; two output tiles)."""
+    B, H, W, Cout = 3, 21, 37, 40
+    plan = deform_bf16_plan(B, C, H, W, G, Cout, sms)
+    assert plan["smem"] <= 232448 and 2 <= plan["stages"] <= 8
+    if (C, G) == (32, 8):
+        assert plan["stages"] == 8 and plan["smem"] == 209280
+    Cg = C // G
+    for c0 in range(0, C, 32):
+        assert (min(C, c0 + 32) - 1) // Cg - c0 // Cg + 1 <= plan["ngc"]
+    expect = {(z, b, y, x) for z in range(2) for b in range(B)
+              for y in range(0, H, 8) for x in range(0, W, 16)}
+    assert plan["items"] == len(expect)
+    assert plan["ctas"] == min(len(expect), sms)
+    work = [item for cta in range(plan["ctas"])
+            for item in deform_bf16_work(plan, B, H, W, cta)]
+    assert len(work) == len(expect) and set(work) == expect
+
+
+def test_deform_bf16_plan_refuses_ungrouped_channels():
+    with pytest.raises(ValueError):
+        deform_bf16_plan(1, 12, 8, 8, 5, 8, 132)
+
+
+@pytest.mark.parametrize("sigma", [0.0, 3.0, 24.0])
+def test_bf16_window_hit_share_matches_a_sample_loop(sigma):
+    """`bf16_window_hit_share` against the kernel's rule written out per
+    sample (f32 coordinates clamped to [-2, H + 1], the top-left corner
+    and its right and lower neighbours inside the tile's window); all
+    samples hit at zero offsets. (On an image this small the clamped
+    coordinates of sigma-24 offsets mostly fall in a window too.)"""
+    B, G, H, W = 1, 2, 11, 19
+    rng = np.random.RandomState(5)
+    off = (rng.randn(B, G * 18, H, W) * sigma).astype(np.float32)
+    hits = 0
+    for g in range(G):
+        for k in range(9):
+            for y in range(H):
+                for x in range(W):
+                    ys = np.float32(y + k // 3 - 1) + off[0, g * 18 + 2 * k,
+                                                          y, x]
+                    xs = np.float32(x + k % 3 - 1) + off[0, g * 18 + 2 * k
+                                                         + 1, y, x]
+                    y0 = np.floor(min(max(ys, -2.0), H + 1.0))
+                    x0 = np.floor(min(max(xs, -2.0), W + 1.0))
+                    ly = y0 - (y // 8 * 8 - BF16_WIN_EY)
+                    lx = x0 - (x // 16 * 16 - BF16_WIN_EX)
+                    hits += (0 <= ly < 8 + 2 * BF16_WIN_EY - 1
+                             and 0 <= lx < 16 + 2 * BF16_WIN_EX - 1)
+    share = bf16_window_hit_share(torch.from_numpy(off), G)
+    assert share == pytest.approx(hits / (G * 9 * H * W), abs=1e-7)
+    if sigma == 0.0:
+        assert share == 1.0
 
 
 @pytest.mark.parametrize("B,C,H,W,G,Cout", [(2, 16, 8, 8, 4, 12),

@@ -10,8 +10,9 @@ import torch
 
 from romp_tpu_torch.ops import _build
 from romp_tpu_torch.ops.deform_conv import (
-    bwd_global_share, bwd_plan, deform_conv2d, deform_conv2d_backward,
-    deform_conv2d_bwd_plain, deform_conv2d_plain,
+    BF16_PLAN_KEYS, bwd_global_share, bwd_plan, deform_bf16_plan,
+    deform_conv2d, deform_conv2d_backward, deform_conv2d_bwd_plain,
+    deform_conv2d_plain,
 )
 from romp_tpu_torch.ops.fused_chain import (
     basic_chain, basic_chain_plain, conv_pass, conv_pass_plain,
@@ -183,19 +184,55 @@ def test_chain_kernel_bf16_matches_plain(dev, B, C, H, W, blocks):
     assert _rel(out.float(), ref.float()) <= 5e-3 + 2.0 ** -8
 
 
+def _bf16_offsets(g, kind, B, G, H, W):
+    """Offsets of one kind: zero; N(0, 2^2) (TRACE's test case); N(0,
+    24^2) (far outside the x window and the image); half-integers and
+    integers in [-3, 3] (corners with weight 0, coordinates such as -0.5
+    whose floor is -1)."""
+    shape = (B, G * 18, H, W)
+    if kind == "zero":
+        return torch.zeros(shape)
+    if kind in ("sigma2", "sigma24"):
+        return torch.randn(shape, generator=g) * float(kind[5:])
+    steps = torch.randint(-6, 7, shape, generator=g).float()
+    return steps / 2 if kind == "half" else torch.round(steps / 2)
+
+
+def _identity_tap(Cout, C, k, shift):
+    """A bf16 weight that copies tap k's sample of channel co + shift to
+    output co (zero elsewhere), so that the output is those samples."""
+    w = torch.zeros(Cout, C, 3, 3)
+    co = torch.arange(max(0, min(Cout, C - shift)))
+    w[co, co + shift, k // 3, k % 3] = 1.0
+    return w.bfloat16()
+
+
+@pytest.mark.parametrize("offsets", ["zero", "sigma2", "sigma24", "half",
+                                     "integer"])
 @pytest.mark.parametrize("B,C,H,W,G,Cout", [(8, 32, 128, 128, 8, 32),
                                             (3, 12, 13, 29, 3, 40),
                                             (2, 16, 9, 17, 2, 24),
                                             (1, 40, 7, 9, 4, 8),
-                                            (1, 64, 7, 9, 8, 40)])
-def test_deform_kernel_bf16_matches_plain(dev, B, C, H, W, G, Cout):
+                                            (1, 64, 7, 9, 8, 40),
+                                            (2, 40, 13, 24, 4, 40),
+                                            (1, 64, 9, 16, 8, 40)])
+def test_deform_kernel_bf16_matches_plain(dev, B, C, H, W, G, Cout,
+                                          offsets):
     """The bf16 variant (bf16 x and weight, f32 offsets, f32 out): the same
-    rounding points as the plain twin, so the samples agree bit for bit and
-    the outputs to f32 summation order (bf16 MMAs against the einsum): 1e-4
-    of max|ref|. Shapes as the f32 kernel's test."""
+    rounding points as the plain twin, so the outputs agree to f32
+    summation order (bf16 MMAs against the einsum): 1e-4 of max|ref|; one
+    launch a call. And the samples bit for bit: with a weight that is the
+    identity on one tap the output is the samples themselves (products by
+    1 and 0, exact sums), for every tap and channel. Shapes as the f32
+    kernel's test: TRACE's (the TMA path), W = 29, 17, 9 (the copy path),
+    tiles that cross the image's edge, B = 1 at 7 x 9 (one work item),
+    Cg = 3 and 10 (single channels), C = 40 and 64 (two blocks), Cout =
+    40 (two output tiles); and the TMA path (W % 8 == 0) with ragged
+    tiles, Cg = 10 and 8, two blocks and two output tiles at W = 24 and
+    16 (narrower than the window)."""
     g = torch.Generator().manual_seed(B * C + H + 1)
     x = torch.randn(B, C, H, W, generator=g).to(torch.bfloat16).to(dev)
-    off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
+    off = _bf16_offsets(g, offsets, B, G, H, W).to(dev)
     w = (torch.randn(Cout, C, 3, 3, generator=g) * 0.1).to(
         torch.bfloat16).to(dev)
     before = (deform_conv2d.launches, deform_conv2d.bf16_launches)
@@ -205,6 +242,46 @@ def test_deform_kernel_bf16_matches_plain(dev, B, C, H, W, G, Cout):
     assert (deform_conv2d.launches, deform_conv2d.bf16_launches) == (
         before[0] + 1, before[1] + 1)
     assert _rel(out, deform_conv2d_plain(x, off, w, deform_groups=G)) <= 1e-4
+    for k in range(9):
+        for shift in range(0, C, Cout):
+            wi = _identity_tap(Cout, C, k, shift).to(dev)
+            assert torch.equal(deform_conv2d(x, off, wi, deform_groups=G),
+                               deform_conv2d_plain(x, off, wi,
+                                                   deform_groups=G)), (k,
+                                                                       shift)
+
+
+def test_deform_kernel_bf16_copy_path_equals_tma(dev):
+    """x and offsets one element past a 16-byte boundary take the kernel's
+    copy path at TRACE's shape (W % 8 == 0): bit-equal to the TMA path on
+    the same values."""
+    g = torch.Generator().manual_seed(12)
+    B, C, H, W, G = 2, 32, 40, 48, 8
+    x = torch.randn(B, C, H, W, generator=g).to(torch.bfloat16).to(dev)
+    off = (torch.randn(B, G * 18, H, W, generator=g) * 2.0).to(dev)
+    w = (torch.randn(32, C, 3, 3, generator=g) * 0.1).to(
+        torch.bfloat16).to(dev)
+    xs = torch.empty(x.numel() + 1, dtype=x.dtype, device=dev)
+    xs[1:] = x.flatten()
+    offs = torch.empty(off.numel() + 1, device=dev)
+    offs[1:] = off.flatten()
+    xu, offu = xs[1:].view_as(x), offs[1:].view_as(off)
+    assert xu.data_ptr() % 16 and offu.data_ptr() % 16
+    assert torch.equal(deform_conv2d(x, off, w, G),
+                       deform_conv2d(xu, offu, w, G))
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("C,G", [(32, 8), (16, 2), (12, 3), (40, 4), (64, 64),
+                                 (256, 8), (6, 6)])
+def test_deform_bf16_plan_is_the_kernels(dev, C, G, sms):
+    """`deform_bf16_plan` (the CPU tests' mirror) is the plan the library
+    computes (`romp_deform_conv2d_bf16_plan`)."""
+    out = (ctypes.c_longlong * len(BF16_PLAN_KEYS))()
+    assert _build.load().romp_deform_conv2d_bf16_plan(
+        3, C, 21, 37, G, 40, sms, ctypes.addressof(out)) == 0
+    assert dict(zip(BF16_PLAN_KEYS, out)) == deform_bf16_plan(
+        3, C, 21, 37, G, 40, sms)
 
 
 def test_bf16_kernels_reject_other_dtypes(dev):
