@@ -192,7 +192,8 @@ from romp_tpu_torch.ops.deform_conv import (  # noqa: E402
     deform_conv2d_plain, deform_smem,
 )
 from romp_tpu_torch.ops.fused_chain import (  # noqa: E402
-    basic_chain, basic_chain_plain, conv_pass, conv_pass_plain, launch_plan,
+    basic_chain, basic_chain_plain, bf16_chain_bytes, bf16_chain_plan,
+    conv_pass, conv_pass_plain, launch_plan,
 )
 from romp_tpu_torch.ops import epropnp_mc as tmc  # noqa: E402
 from romp_tpu_torch.ops import pnp as tpnp  # noqa: E402
@@ -250,9 +251,12 @@ BF16_ACT = LayerOpts(compute_dtype=torch.bfloat16, act_dtype=torch.bfloat16)
 BF16_ACT_FUSED = dataclasses.replace(BF16_ACT, fuse_chains=True)
 # every kernel variant, as the kernels line names them
 KERNELS = ("skinning", "skinning_bwd", "basic_chain", "basic_chain_bf16",
-           "deform_conv", "deform_conv_bf16", "deform_conv_bwd")
+           "basic_chain_bf16_passes", "deform_conv", "deform_conv_bf16",
+           "deform_conv_bwd")
 BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))  # (C, H) at 512x512
 CHAIN_BATCHES = (1, 2, 64)   # batch-1 latency, PR 1's rows, offline batch
+# the bf16 chain's: the server's batch 8 too
+CHAIN_BF16_BATCHES = (1, 2, 8, 64)
 # batch x max_person: 1, 16 and 64 x 64; 512 the train steps' (ROMP's 64 x
 # 8 GT persons, BEV's 32 x 16 per SMPL+A model)
 SKIN_N = (64, 512, 1024, 4096)
@@ -362,20 +366,31 @@ def device_ms(fn, launches, calls=20, tries=3):
     return None
 
 
+def kernel_names(call):
+    """The names of the kernels that runs of call() launch, as the
+    profiler reports them (empty if it reported none in all its tries)."""
+    return sorted({e.name.replace("(anonymous namespace)::", "")
+                   .split("(")[0] for e in device_events(call)})
+
+
 def reset_counts():
     """Every kernel wrapper's launch counter to 0."""
     skinning.launches = conv_pass.launches = deform_conv2d.launches = 0
     skinning_backward.launches = deform_conv2d_backward.launches = 0
     basic_chain.bf16_launches = deform_conv2d.bf16_launches = 0
+    basic_chain.bf16_fused_launches = 0
 
 
 def launch_counts():
     """Launches per kernel variant since reset_counts (the f32 variants'
-    counters include their bf16 variants' launches: those are taken out)."""
+    counters include their bf16 variants' launches: those are taken out;
+    the bf16 chain's are its fused block kernel's and its passes')."""
     return {"skinning": skinning.launches,
             "skinning_bwd": skinning_backward.launches,
             "basic_chain": conv_pass.launches - basic_chain.bf16_launches,
-            "basic_chain_bf16": basic_chain.bf16_launches,
+            "basic_chain_bf16": basic_chain.bf16_fused_launches,
+            "basic_chain_bf16_passes": (basic_chain.bf16_launches
+                                        - basic_chain.bf16_fused_launches),
             "deform_conv": (deform_conv2d.launches
                             - deform_conv2d.bf16_launches),
             "deform_conv_bf16": deform_conv2d.bf16_launches,
@@ -431,8 +446,12 @@ def phase_kernels(dev):
     rows["basic_chain"] = [chain_row(dev, g, B, C, H)
                            for B in CHAIN_BATCHES for C, H in BRANCHES]
     rows["deform_conv"].append(deform_row(dev, g))
-    rows["basic_chain_bf16"] = [chain_bf16_row(dev, g, 64, C, H)
-                                for C, H in BRANCHES]
+    bf16_rows = [chain_bf16_row(dev, g, B, C, H)
+                 for B in CHAIN_BF16_BATCHES for C, H in BRANCHES]
+    # the fused block kernel's rows and the passes', each its own kernel
+    rows["basic_chain_bf16"] = [r for r in bf16_rows if r["plan"]["fused"]]
+    rows["basic_chain_bf16_passes"] = [r for r in bf16_rows
+                                       if not r["plan"]["fused"]]
     rows["deform_conv_bf16"] = [deform_bf16_row(dev, g)]
     # the train step's clip (T = 10 frames) and the inference batch
     rows["deform_conv_bwd"] = [deform_bwd_row(dev, g, B)
@@ -556,7 +575,8 @@ def chain_row(dev, g, B, C, H, blocks=4):
         unfused_ms=unfused_ms)
 
 
-TENSOR_CORE_KERNELS = ("conv3x3_bn_act_mma_kernel", "skinning_tf32_kernel",
+TENSOR_CORE_KERNELS = ("conv3x3_bn_act_mma_kernel", "chain_block_bf16_kernel",
+                       "skinning_tf32_kernel",
                        "skinning_bwd_segment_kernel",
                        "deform_conv_tf32_kernel",
                        "deform_bf16_persistent_kernel",
@@ -579,7 +599,8 @@ def tensor_core_sass():
 
 def demangled(name):
     """The kernel's name and template arguments from a mangled name, as
-    'conv3x3_bn_act_mma_kernel<16,64>'; other names as they are."""
+    'conv3x3_bn_act_mma_kernel<16,64>' or 'chain_block_bf16_kernel<32,16,
+    16,float>'; other names as they are."""
     for m in re.finditer(r"\d+", name):
         # the length prefix may follow other digits (a hash in the
         # anonymous namespace's name): try each tail of the digit run
@@ -587,33 +608,66 @@ def demangled(name):
             ident = name[m.end():m.end() + int(m.group()[k:])]
             if re.fullmatch(r"[A-Za-z_]\w*_kernel", ident):
                 rest = name[m.end() + len(ident):]
-                args = re.match(r"I((?:L[ib]\d+E)+)E", rest)
+                args = re.match(r"I((?:L[ib]\d+E)+)(f|13__nv_bfloat16)?E",
+                                rest)
                 if args is None:
                     return ident
-                return (f"{ident}<"
-                        f"{','.join(re.findall(r'L[ib](\d+)E', args[1]))}>")
+                vals = re.findall(r'L[ib](\d+)E', args[1])
+                if args[2]:   # a type argument last: the block input's
+                    vals.append("float" if args[2] == "f" else "bf16")
+                return f"{ident}<{','.join(vals)}>"
     return name
 
 
 def chain_bf16_row(dev, g, B, C, H, blocks=4):
     """The chain's bf16-in / bf16-out variant on a seeded branch's packed
     operands: bit-equal to the f32 kernel on the widened input, rounded
-    (the same plan and passes), and within the chain's 5e-3 of max|ref|
-    plus one bf16 step (2^-8) of its plain twin; beside the unfused
-    bf16-activation branch (cuDNN bf16 convs, BN, ReLU, adds in bf16)."""
+    (the same sums in the same order), bit-equal from one call to the next,
+    and within the chain's 5e-3 of max|ref| plus one bf16 step (2^-8) of
+    its plain twin; beside the unfused bf16-activation branch (cuDNN bf16
+    convs, BN, ReLU, adds in bf16). Where `bf16_chain_plan` fuses (one
+    launch a block): a call runs that kernel and nothing else, and
+    allocates nothing beside its output and the inner blocks' f32
+    outputs."""
     br = seeded_branch(g, C, blocks).to(dev)
     cast_bf16(br)
     w, sc, sh = br.packed_w, br.packed_scale, br.packed_shift
     x = torch.randn(B, C, H, H, generator=g).to(torch.bfloat16).to(dev)
     out = basic_chain(x, w, sc, sh, blocks)
+    again = basic_chain(x, w, sc, sh, blocks)
     ref = basic_chain_plain(x, w, sc, sh, blocks)
     f32 = basic_chain(x.float(), w, sc, sh, blocks).to(torch.bfloat16)
     torch.cuda.synchronize()
     shape = f"B={B},C={C},H=W={H},blocks={blocks},bf16"
     check(out.dtype == torch.bfloat16 and torch.equal(out, f32),
           f"chain {shape}: != the f32 chain, rounded")
+    check(torch.equal(out, again), f"chain {shape}: two calls differ")
     err = rel_err(out, ref)
     check(err <= 5e-3 + 2.0 ** -8, f"chain {shape}: rel err {err}")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = bf16_chain_plan(B, C, H, H, sms)
+    call = lambda: basic_chain(x, w, sc, sh, blocks)  # noqa: E731
+    if plan.fused:
+        kernels = {"chain_block_bf16_kernel": blocks}
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        once = call()
+        torch.cuda.synchronize()
+        extra = (torch.cuda.max_memory_allocated(dev) - base
+                 - 2 * once.numel() - 4 * min(blocks - 1, 2) * x.numel())
+        check(extra <= 0, f"chain {shape}: {extra} bytes allocated beside "
+              "the output and the inner blocks")
+        del once
+        names = kernel_names(call)
+        check(names and all("chain_block_bf16_kernel" in n for n in names),
+              f"chain {shape}: a fused call ran {names}")
+    else:
+        names = None
+        kernels = {"conv3x3_bn_act_mma_kernel": 2 * blocks,
+                   "nchw_to_nhwc_bf16_kernel": 1}
+        if plan.passes.ksplit > 1:
+            kernels["ksplit_reduce_kernel"] = 2 * blocks
     # 8 bf16 3x3 convs; x (bf16) read once, the output (bf16) written once,
     # the packed weights and BN scale / shift read once
     bounds = bound(
@@ -622,20 +676,20 @@ def chain_bf16_row(dev, g, B, C, H, blocks=4):
     with torch.inference_mode(), precision_flags(
             RompConfig(compute_dtype="bfloat16", act_dtype="bfloat16")):
         unfused_ms = time_ms(lambda: br(x, BF16_ACT))
-    plan = launch_plan(B, C, H, H)
-    kernels = {"conv3x3_bn_act_mma_kernel": 2 * blocks,
-               "nchw_to_nhwc_bf16_kernel": 1}
-    if plan.ksplit > 1:
-        kernels["ksplit_reduce_kernel"] = 2 * blocks
     return dict(
-        shape=shape, batch=B, plan=plan._asdict(),
+        shape=shape, batch=B,
+        plan={k: v for k, v in plan._asdict().items() if k != "passes"},
+        passes_plan=plan.passes._asdict() if plan.passes else None,
+        bytes_per_element=bf16_chain_bytes(plan, blocks),
+        kernels_a_call=names, bitwise_repeat=True,
         max_abs_err=float((out.float() - ref.float()).abs().max()),
         rel_err=err, **bounds,
-        ms=time_ms(lambda: basic_chain(x, w, sc, sh, blocks)),
-        device_ms=device_ms(lambda: basic_chain(x, w, sc, sh, blocks),
-                            kernels),
-        plain_ms=time_ms(lambda: basic_chain_plain(x, w, sc, sh, blocks),
-                         reps=10),
+        ms=time_ms(call),
+        device_ms=device_ms(call, kernels),
+        # the plain twin at the kernels line's batch and PR 1's only
+        plain_ms=(time_ms(lambda: basic_chain_plain(x, w, sc, sh, blocks),
+                          reps=10 if B > 2 else 20)
+                  if B in (2, 64) else None),
         unfused_ms=unfused_ms)
 
 
@@ -683,8 +737,7 @@ def deform_bf16_row(dev, g):
     extra = torch.cuda.max_memory_allocated(dev) - base - 4 * once.numel()
     check(extra == 0, f"deform bf16: {extra} bytes allocated beside the "
           "output")
-    names = sorted({e.name.replace("(anonymous namespace)::", "")
-                    .split("(")[0] for e in device_events(call)})
+    names = kernel_names(call)
     check(len(names) == 1 and BF16_KERNEL in names[0],
           f"deform bf16: a call ran {names}")
     del once
@@ -1036,6 +1089,7 @@ def phase_bf16_slices(dev, params, assets, images16, bev_params, adult,
             check(c["skinning"] == (1 if name == "romp" else 2),
                   f"{name} bf16 fuse={fuse}: skinning {c}")
             check((c["basic_chain_bf16"] > 0) == fuse
+                  and (c["basic_chain_bf16_passes"] > 0) == fuse
                   and c["basic_chain"] == 0 and c["deform_conv"] == 0
                   and c["deform_conv_bf16"] == 0,
                   f"{name} bf16 fuse={fuse}: launches {c}")
@@ -2646,7 +2700,8 @@ def phase_eval(dev, smi):
           and all(np.isfinite(r["conf_max_delta"]) for r in rows.values()),
           f"bf16_on_checkpoint {rows}")
     check(n["skinning"] >= 1 and n["skinning_bwd"] >= EVAL_STEPS
-          and n["basic_chain"] >= 1 and n["basic_chain_bf16"] >= 1,
+          and n["basic_chain"] >= 1
+          and n["basic_chain_bf16"] + n["basic_chain_bf16_passes"] >= 1,
           f"eval launches {n}")
     phase("eval", "romp chain", backbone="hrnet32", input_size=512, batch=8,
           steps=EVAL_STEPS, interval=EVAL_INTERVAL, n_train=EVAL_TRAIN,
@@ -3154,9 +3209,16 @@ def main():
     phase(2, "build", seconds=time.perf_counter() - t0,
           library=str(_build.library_path().name),
           chain_kernels={demangled(r.pop("kernel")): r for r in
-                         _build.kernel_resources("basic_chain")},
+                         _build.kernel_resources("basic_chain")
+                         + _build.kernel_resources("chain_block_bf16")},
           chain_smem_bytes={f"C={C},B={B}": launch_plan(B, C, H, H).smem
                             for C, H in BRANCHES for B in CHAIN_BATCHES},
+          chain_bf16_plans={
+              f"C={C},B={B}": bf16_chain_plan(
+                  B, C, H, H, torch.cuda.get_device_properties(
+                      dev).multi_processor_count)._asdict()
+              | {"passes": None} for C, H in BRANCHES
+              for B in CHAIN_BF16_BATCHES},
           skinning_kernels={demangled(r.pop("kernel")): r for r in
                             _build.kernel_resources("skinning")},
           skinning_smem_bytes={f"N={n}": skinning_plan(n, V).smem
@@ -3229,8 +3291,10 @@ def main():
                         "romp_tpu/ops/pallas_fuse.py:134"),
         "deform_conv": ("romp_tpu_torch/csrc/deform_conv.cu",
                         "romp_tpu/ops/pallas_deform.py:103"),
-        "basic_chain_bf16": ("romp_tpu_torch/csrc/basic_chain.cu",
+        "basic_chain_bf16": ("romp_tpu_torch/csrc/chain_block_bf16.cu",
                              "romp_tpu/ops/pallas_fuse.py:134"),
+        "basic_chain_bf16_passes": ("romp_tpu_torch/csrc/basic_chain.cu",
+                                    "romp_tpu/ops/pallas_fuse.py:134"),
         "deform_conv_bf16": ("romp_tpu_torch/csrc/deform_conv.cu",
                              "romp_tpu/ops/pallas_deform.py:103"),
         "deform_conv_bwd": ("romp_tpu_torch/csrc/deform_conv.cu",
@@ -3242,12 +3306,15 @@ def main():
         # backward: the train step's (N = 64 x 8); the chain:
         # the sum over the four branch shapes at B=2, one stage-4 module's
         # chains (PR 1's definition, so the numbers compare), its bf16
-        # variant the same sum at B=64; the deforms: TRACE's shape, one
+        # variant the same sum at B=64, the fused block kernel's (C = 32
+        # and 64) and the passes' (C = 128 and 256) apart; the deforms:
+        # TRACE's shape, one
         # launch per clip; the deform backward: the train step's clip
         # (T = 10), one launch per clip
         timed = ([r for r in rows[name] if r["batch"] == 2]
-                 if name == "basic_chain" else rows[name]
-                 if name == "basic_chain_bf16" else
+                 if name == "basic_chain" else
+                 [r for r in rows[name] if r["batch"] == 64]
+                 if name.startswith("basic_chain_bf16") else
                  [r for r in rows[name] if r["shape"].startswith("N=512,")]
                  if name == "skinning_bwd" else rows[name][:1]
                  if name == "deform_conv_bwd" else rows[name][-1:])

@@ -87,7 +87,10 @@
 // of 8 pixels, where W % 8 == 0); the inner blocks' outputs stay f32, as in the TPU kernel's
 // VMEM; the last pass's epilogue rounds its f32 result to bf16 NCHW
 // itself. So it equals the f32 chain on the widened input, cast to bf16,
-// bit for bit (the same plan and passes).
+// bit for bit (the same plan and passes). Where C is 32 or 64 and the plan
+// does not split K, the bf16 chain runs chain_block_bf16.cu instead (one
+// launch a block, h in shared memory; ops/fused_chain.py
+// `bf16_chain_plan`); these passes serve the other shapes.
 //
 // Tried on the H100 against this design and not kept (no gain beyond the
 // run-to-run spread, or a loss): wgmma.m64nNk16 with A from registers

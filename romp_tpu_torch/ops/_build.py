@@ -44,6 +44,8 @@ SIGNATURES = {
     "romp_conv3x3_bn_act": [_P] * 8 + [_I] * 8 + [_P],
     "romp_basic_chain": [_P] * 9 + [_I] * 9 + [_P],
     "romp_basic_chain_bf16": [_P] * 10 + [_I] * 9 + [_P],
+    "romp_chain_bf16_fused": [_P] * 7 + [_I] * 12 + [_P],
+    "romp_chain_bf16_fused_plan": [_I] * 8 + [_P],
     "romp_deform_conv2d_f32": [_P] * 5 + [_I] * 7 + [_P],
     "romp_deform_conv2d_bf16": [_P] * 4 + [_I] * 8 + [_P],
     "romp_deform_conv2d_bf16_plan": [_I] * 7 + [_P],

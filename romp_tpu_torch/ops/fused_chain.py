@@ -19,10 +19,14 @@ so they compare with `pallas_fuse.pack_chain_weights` bit for bit.
 
 bf16 in and out (the bf16-activation path): the TPU kernel widens a bf16
 input to f32, runs the chain in f32 and rounds its result to bf16
-(`pallas_fuse.py:145-146, 174`). `basic_chain` on a bf16 x launches the
-kernel's bf16 variant, which reads x as it is (its conversion reads bf16
-NCHW; block 0's residual is x, widened exactly) and whose last pass writes
-bf16 NCHW; `basic_chain_plain` has the same dtype contract.
+(`pallas_fuse.py:145-146, 174`). `basic_chain` on a bf16 x runs one of two
+designs, as `bf16_chain_plan` picks: where C is 32 or 64 (the two widest
+HRNet maps) and W % 8 == 0 (TMA's 16-byte rows), the fused block kernel (`csrc/chain_block_bf16.cu`, one launch
+a BasicBlock, h kept in shared memory, x read as bf16 NCHW, the inner
+block outputs f32); elsewhere the passes' bf16 variant (the conversion
+reads bf16 NCHW; block 0's residual is x, widened exactly; the last pass
+writes bf16 NCHW). Both are bit-equal to the f32 chain on x.float(),
+rounded; `basic_chain_plain` has the same dtype contract.
 
 Forward only: under grad mode with an operand that requires grad the
 kernel wrappers raise, where the plain twins (the CPU's) would carry the
@@ -108,6 +112,14 @@ MIN_CTAS = 128          # about one wave of the H100's 132 SMs
 SMEM_LIMIT = 232_448    # shared memory a block can use on Hopper
 
 
+# The fused bf16 block kernel's instantiations (csrc/chain_block_bf16.cu
+# `kInsts`): C -> (tile_h, tile_w, consumer warps). Its CTAs also hold a
+# producer warpgroup, of which one warp loads.
+FUSED_TILES = {32: (16, 16, 8), 64: (8, 8, 8)}
+FUSED_MAX_STAGES = 2
+CARD_SMS = 132          # the H100 SXM's SMs (the plan's default)
+
+
 class ChainPlan(NamedTuple):
     tile_h: int     # output tile rows (the tile is tile_h x TILE_W pixels)
     tile_n: int     # output channels per CTA
@@ -152,6 +164,87 @@ def launch_plan(B: int, C: int, H: int, W: int) -> ChainPlan:
         if best is None or plan.ctas > best.ctas:
             best = plan
     return best
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def fused_smem(C: int, tile_h: int, tile_w: int, stages: int) -> int:
+    """Shared memory of one fused block CTA (chain_block_bf16.cu `Geo`):
+    both convs' weights (9C rows of C bf16 values each, swizzled), the
+    window A (pixel rows of C bf16 values, swizzled; its place also holds
+    conv2's sums, C f32 planes of the tile padded by 4), h's region (rows
+    as A's), both convs' scale and shift (f32), the mbarriers (two a
+    stage, for up to FUSED_MAX_STAGES), then
+    `stages` staging buffers of the window in f32 (rows from the 16-byte
+    boundary 4 columns left of the tile, tile_w + 6 columns rounded up to
+    16 bytes; each buffer rounded to 128), and 1024 bytes to align the
+    base."""
+    win = (tile_h + 4) * (tile_w + 4)
+    hreg = (tile_h + 2) * (tile_w + 2)
+    a = max(win * C * 2, C * (tile_h * tile_w + 4) * 4)
+    off = _align128(2 * 9 * C * C * 2 + a + hreg * C * 2 + 4 * C * 4
+                    + 2 * FUSED_MAX_STAGES * 8)
+    stage = _align128(C * (tile_h + 4) * (-(-(tile_w + 6) // 4) * 4) * 4)
+    return off + stages * stage + 1024
+
+
+class Bf16ChainPlan(NamedTuple):
+    fused: bool     # one launch a block (chain_block_bf16.cu); else passes
+    tile_h: int     # output tile rows
+    tile_w: int     # output tile columns
+    warps: int      # MMA warps a CTA (fused: plus a producer warpgroup)
+    cluster: int    # CTAs a cluster (1: no clusters)
+    stages: int     # staging buffers (fused) or cp.async stages (passes)
+    smem: int       # dynamic shared memory a CTA, bytes
+    ctas: int       # CTAs a launch (fused: persistent, at most one an SM)
+    tiles: int      # output tiles a launch
+    launches_per_block: int   # conv kernel launches a BasicBlock
+    passes: Optional[ChainPlan]   # the passes' plan where not fused
+
+
+@functools.lru_cache(maxsize=None)
+def bf16_chain_plan(B: int, C: int, H: int, W: int,
+                    sms: int = CARD_SMS) -> Bf16ChainPlan:
+    """The bf16 chain's design for a shape on `sms` SMs. Fused where the
+    block kernel has an instantiation for C (FUSED_TILES), where W % 8 == 0
+    (the kernel reads its input by TMA, whose rows are 16-byte aligned;
+    a copy path there was 3-4.5x slower than the passes), where the f32
+    chain sums K in one piece (its plan has no K split: the bf16 chain
+    stays bit-equal to it) and where the tensor has fewer than 2^31
+    elements; the persistent CTAs then number min(tiles, sms), with as
+    many staging buffers as fit (up to FUSED_MAX_STAGES). Elsewhere the
+    passes, at `launch_plan`'s plan."""
+    passes = launch_plan(B, C, H, W)
+    if (C in FUSED_TILES and W % 8 == 0 and passes.ksplit == 1
+            and B * C * H * W < 2 ** 31):
+        th, tw, warps = FUSED_TILES[C]
+        tiles = B * -(-H // th) * -(-W // tw)
+        for stages in range(FUSED_MAX_STAGES, 0, -1):
+            smem = fused_smem(C, th, tw, stages)
+            if smem <= SMEM_LIMIT:
+                return Bf16ChainPlan(True, th, tw, warps, 1, stages, smem,
+                                     min(tiles, sms), tiles, 1, None)
+    threads = 256 if (passes.tile_h, passes.tile_n) == (32, 64) else 128
+    return Bf16ChainPlan(
+        False, passes.tile_h, TILE_W, threads // 32, 1, STAGES, passes.smem,
+        passes.ctas, B * -(-H // passes.tile_h) * -(-W // TILE_W), 2, passes)
+
+
+def bf16_chain_bytes(plan: Bf16ChainPlan, blocks: int) -> int:
+    """Device-memory bytes an element of a `blocks`-block bf16 chain moves
+    under `plan`, halo rereads not counted. Fused: each block reads its
+    input (bf16 x, then the f32 inner outputs) and writes its output (f32,
+    the last bf16). Passes: the conversion (2 + 2), each conv1 reads its
+    bf16 operand and writes h (2 + 2), each conv2 reads h, reads the
+    residual (bf16 x, then f32) and writes the output (f32 and a bf16 NHWC
+    copy, the last bf16 NCHW)."""
+    if plan.fused:
+        return sum((2 if n == 0 else 4) + (2 if n == blocks - 1 else 4)
+                   for n in range(blocks))
+    return 4 + sum(4 + 2 + (2 if n == 0 else 4)
+                   + (2 if n == blocks - 1 else 6) for n in range(blocks))
 
 
 def _check_operands(x, w, scale, shift, lead=(), x_dtype=torch.float32
@@ -269,11 +362,21 @@ def basic_chain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _basic_chain_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                       shift: torch.Tensor, blocks: int) -> torch.Tensor:
-    """basic_chain's bf16 variant (CUDA tensors): `romp_basic_chain_bf16`.
-    Counts its conv launches in `basic_chain.bf16_launches` as well as in
-    `conv_pass.launches`."""
+    """basic_chain's bf16 variant (CUDA tensors), as `bf16_chain_plan`
+    picks: `romp_chain_bf16_fused` (one launch a block; nothing allocated
+    beside the output but the inner blocks' f32 outputs) or
+    `romp_basic_chain_bf16` (the passes). Raises where x's data is not
+    16-byte aligned: TMA cannot read it, and the passes' vector loads
+    fault on it. Counts its conv launches in
+    `basic_chain.bf16_launches` as well as in `conv_pass.launches`, and
+    the fused kernel's also in `basic_chain.bf16_fused_launches`."""
     _check_operands(x, w, scale, shift, lead=(blocks, 2),
                     x_dtype=torch.bfloat16)
     if blocks == 0:
@@ -281,7 +384,30 @@ def _basic_chain_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    plan = launch_plan(*x.shape)
+    if x.data_ptr() % 16:
+        raise ValueError("basic_chain: a bf16 x's data must be 16-byte "
+                         "aligned")
+    sms = _sms(x.device.index)
+    fplan = bf16_chain_plan(*x.shape, sms)
+    if fplan.fused:
+        # the inner blocks' f32 outputs alternate in y0 / y1
+        n_f32 = min(blocks - 1, 2)
+        ys = (torch.empty(n_f32 * x.numel(), dtype=torch.float32,
+                          device=x.device) if n_f32 else None)
+        y0 = ys.data_ptr() if n_f32 >= 1 else None
+        y1 = y0 + 4 * x.numel() if n_f32 == 2 else None
+        with torch.cuda.device(x.device):
+            err = _build.load().romp_chain_bf16_fused(
+                x.data_ptr(), y0, y1, out.data_ptr(), w.data_ptr(),
+                scale.data_ptr(), shift.data_ptr(), blocks, *x.shape,
+                fplan.tile_h, fplan.tile_w, fplan.warps, fplan.stages,
+                fplan.smem, fplan.ctas, sms, _stream(x))
+        _build.check(err, "romp_chain_bf16_fused")
+        conv_pass.launches += blocks
+        basic_chain.bf16_launches += blocks
+        basic_chain.bf16_fused_launches += blocks
+        return out
+    plan = fplan.passes
     # bf16 NHWC operands of conv1 and conv2, and the two f32 buffers the
     # inner blocks' outputs alternate in
     _owner, (xb, h, y0, y1), partial = _scratch(x, plan, 2, 2)
@@ -299,3 +425,4 @@ def _basic_chain_bf16(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 
 conv_pass.launches = 0
 basic_chain.bf16_launches = 0
+basic_chain.bf16_fused_launches = 0

@@ -4,6 +4,8 @@ on one GPU.
 
     python -m romp_tpu_torch.utils.chain_plans [--batches 1 2 16 64]
     python -m romp_tpu_torch.utils.chain_plans --breakdown [--batches 64]
+    python -m romp_tpu_torch.utils.chain_plans --breakdown --bf16
+        [--batches 64] [--whole_only]
 
 Plans: for each branch shape (C, H) and batch, a 4-block chain on seeded
 random operands through `basic_chain`, once per valid plan (tile rows x 8
@@ -22,11 +24,28 @@ both (the MMAs alone). Prints, per shape and build, the mean device time
 of a chain's conv1 passes, its conv2 passes (residual, f32 and bf16
 outputs) and its NCHW -> NHWC conversion. Only the first build's results
 are right.
+
+bf16 breakdown (`--bf16`): the bf16-in / bf16-out chain (4 blocks, bf16
+x) at each branch shape, built as it is and then with parts of the fused
+block kernel left out (`-DROMP_CHAIN_FUSED_SKIP`, csrc/chain_block_bf16.cu:
+the window's loads, the MMAs, conv2's MMAs, conv2's epilogue, h's stage,
+the window's rewrite, the residual, the output's stores; the MMAs
+alone). Prints, per shape, batch and build, the chain's device
+time in us (its kernels' sum under torch.profiler, mean of 5 calls) and
+each kernel's mean. The variants build in parallel first. The rows name
+only `basic_chain` and the kernels' own names, so the same file times
+another checkout's package (its parent's design, say) when that package
+comes first on the path; `--whole_only` keeps the first build:
+    PYTHONPATH=<other checkout> python romp_tpu_torch/utils/chain_plans.py \
+        --breakdown --bf16 --whole_only
 """
 from __future__ import annotations
 
 import argparse
 import json
+import re
+import subprocess
+import sys
 from unittest import mock
 
 import torch
@@ -41,20 +60,30 @@ from romp_tpu_torch.ops.fused_chain import (
 BRANCHES = ((32, 128), (64, 64), (128, 32), (256, 16))   # (C, H) at 512x512
 SKIPS = (("all", 0), ("no copies", 1 | 2), ("no epilogue", 4),
          ("MMAs only", 1 | 2 | 4))
+_F = "-DROMP_CHAIN_FUSED_SKIP="
+BF16_BUILDS = (("all", ""), ("no window loads", f"{_F}1"),
+               ("no MMAs", f"{_F}2"), ("no conv2 MMAs", f"{_F}1024"),
+               ("no conv2 epilogue", f"{_F}4"), ("no h stage", f"{_F}8"),
+               ("no rewrite", f"{_F}16"), ("no residual", f"{_F}128"),
+               ("no stores", f"{_F}256"), ("MMAs only", f"{_F}29"))
 
 
-def device_events(fn, calls: int = 5):
+def device_events(fn, calls: int = 5, tries: int = 5):
     """The device events of `calls` runs of fn() after one warm-up, in
-    order of their start."""
+    order of their start. Now and then the profiler reports no device
+    event of a whole run: such a run is made again, and after `tries` of
+    them the list is empty."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return sorted((e for e in prof.events()
-                   if e.device_type == DeviceType.CUDA),
-                  key=lambda e: e.time_range.start)
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+    return sorted(events, key=lambda e: e.time_range.start)
 
 
 def device_us(fn, calls: int = 5) -> float:
@@ -138,17 +167,76 @@ def breakdown(batches, dev) -> None:
         _build._lib = None
 
 
+def kernel_means(fn, calls: int = 5) -> tuple:
+    """fn()'s device time in us (its kernels' sum, mean over `calls`) and
+    each kernel's mean, by name and template arguments."""
+    events = device_events(fn, calls)
+    per = {}
+    for e in events:
+        name = e.name.replace("(anonymous namespace)::", "")
+        name = re.sub(r"\(.*", "", name).replace("void ", "")
+        per.setdefault(name, []).append(e.time_range.elapsed_us())
+    total = sum(e.time_range.elapsed_us() for e in events) / calls
+    return round(total, 1), {k: round(sum(v) / len(v), 1)
+                             for k, v in per.items()}
+
+
+def bf16_breakdown(batches, dev, whole_only: bool) -> None:
+    g = torch.Generator().manual_seed(0)
+    data = []
+    for C, H in BRANCHES:
+        w, sc, sh, xs = operands(g, C, H, batches, dev)
+        data.append((C, H, w, sc, sh,
+                     {B: x.to(torch.bfloat16) for B, x in xs.items()}))
+    # here: kernel_breakdown imports this module
+    from romp_tpu_torch.utils.kernel_breakdown import warm_clocks
+    builds = BF16_BUILDS[:1] if whole_only else BF16_BUILDS
+    flags = list(_build.NVCC_FLAGS)
+    # every variant's library at once (one nvcc per source and variant)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; from romp_tpu_torch.ops import _build; "
+         f"_build.NVCC_FLAGS.extend({flag.split()!r}); _build.build()"],
+        env=None) for _, flag in builds]
+    for proc in procs:
+        if proc.wait() != 0:
+            raise RuntimeError("a breakdown variant failed to build")
+    warm_clocks(dev)
+    try:
+        for name, flag in builds:
+            _build.NVCC_FLAGS[:] = flags + flag.split()
+            _build._lib = None
+            _build.load()
+            for C, H, w, sc, sh, xs in data:
+                for B, x in xs.items():
+                    us, kernels = kernel_means(
+                        lambda: basic_chain(x, w, sc, sh, 4))
+                    print(json.dumps(dict(build=name, C=C, H=H, B=B,
+                                          chain_us=us, kernels_us=kernels)),
+                          flush=True)
+    finally:
+        _build.NVCC_FLAGS[:] = flags
+        _build._lib = None
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--batches", type=int, nargs="+", default=None)
     ap.add_argument("--breakdown", action="store_true",
                     help="time conv1 / conv2 with parts of the kernel left "
                          "out, instead of sweeping the plans")
+    ap.add_argument("--bf16", action="store_true",
+                    help="with --breakdown: the bf16 chain's fused block "
+                         "kernel instead of the f32 chain's passes")
+    ap.add_argument("--whole_only", action="store_true",
+                    help="with --bf16: the first build alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chain_plans: no CUDA device; this times the GPU")
     dev = torch.device("cuda", 0)
-    if args.breakdown:
+    if args.breakdown and args.bf16:
+        bf16_breakdown(args.batches or [64], dev, args.whole_only)
+    elif args.breakdown:
         breakdown(args.batches or [64], dev)
     else:
         sweep(args.batches or [1, 2, 16, 64], dev)

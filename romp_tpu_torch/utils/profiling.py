@@ -61,7 +61,7 @@ KINDS = (
     ("deform kernel", ("deform_conv_tf32_kernel", "deform_prep_kernel",
                        "deform_bf16_persistent_kernel")),
     ("chain kernel", ("conv3x3_bn_act_mma_kernel", "ksplit_reduce_kernel",
-                      "nchw_to_nhwc_bf16_kernel")),
+                      "nchw_to_nhwc_bf16_kernel", "chain_block_bf16_kernel")),
     ("batch norm", ("bn_fw", "batch_norm")),
     ("conv (cuDNN / cuBLAS)", ("conv", "gemm", "xmma", "cutlass", "cudnn",
                                "fft", "pointwise_mult_and_sum_complex")),

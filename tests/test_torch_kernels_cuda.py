@@ -15,7 +15,8 @@ from romp_tpu_torch.ops.deform_conv import (
     deform_conv2d_plain,
 )
 from romp_tpu_torch.ops.fused_chain import (
-    basic_chain, basic_chain_plain, conv_pass, conv_pass_plain,
+    FUSED_TILES, basic_chain, basic_chain_plain, bf16_chain_plan, conv_pass,
+    conv_pass_plain,
 )
 from romp_tpu_torch.ops.lbs import (
     skinning, skinning_backward, skinning_bwd_plain, skinning_plain,
@@ -176,12 +177,101 @@ def test_chain_kernel_bf16_matches_plain(dev, B, C, H, W, blocks):
     out = basic_chain(x, w, sc, sh, blocks)
     torch.cuda.synchronize()
     assert out.dtype == torch.bfloat16 and out.shape == x.shape
-    assert basic_chain.bf16_launches == before + 2 * blocks
+    assert basic_chain.bf16_launches == before + _sms_plan(
+        dev, B, C, H, W).launches_per_block * blocks
     assert torch.equal(out, basic_chain(x.float(), w, sc, sh, blocks).to(
         torch.bfloat16))
     ref = basic_chain_plain(x, w, sc, sh, blocks)
     assert ref.dtype == torch.bfloat16
     assert _rel(out.float(), ref.float()) <= 5e-3 + 2.0 ** -8
+
+
+def _sms_plan(dev, B, C, H, W):
+    """The bf16 chain's plan on this card (its SM count)."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return bf16_chain_plan(B, C, H, W, sms)
+
+
+@pytest.mark.parametrize("B,C,H,W,blocks", [
+    (64, 32, 128, 128, 4),    # tiles (4,096) past the persistent grid
+    (64, 64, 64, 64, 4),
+    (2, 32, 37, 33, 2),       # ragged tiles, W % 8 != 0: the passes
+    (16, 64, 19, 23, 3),
+    (3, 32, 20, 13, 4),
+    (2, 32, 20, 24, 3),       # ragged rows, fused
+    (1, 32, 3, 3, 2),         # an image smaller than the halo: passes
+    (64, 64, 3, 3, 1),
+    (1, 32, 3, 8, 2),         # an image smaller than the halo: fused
+    (64, 64, 3, 8, 1),
+    (1, 256, 16, 16, 4)])     # B = 1 at C = 256: the passes
+def test_chain_kernel_bf16_fused_block(dev, B, C, H, W, blocks):
+    """The fused block kernel (one launch a block, h in shared memory):
+    bit-equal to the f32 chain on the widened input, rounded, and from
+    one call to the next; within 5e-3 + 2^-8 of max|ref| of the plain
+    twin. Fused wherever C is 32 or 64, W % 8 == 0 (TMA reads the input)
+    and the f32 chain sums K in one piece; the other cases run the
+    passes and are held to the same checks."""
+    g = torch.Generator().manual_seed(B + C + H + W)
+    x = torch.randn(B, C, H, W, generator=g).to(torch.bfloat16).to(dev)
+    w, sc, sh = _chain_operands(g, blocks, C, dev)
+    plan = _sms_plan(dev, B, C, H, W)
+    assert plan.fused == (C in FUSED_TILES and W % 8 == 0)
+    before = basic_chain.bf16_launches
+    out = basic_chain(x, w, sc, sh, blocks)
+    again = basic_chain(x, w, sc, sh, blocks)
+    torch.cuda.synchronize()
+    assert basic_chain.bf16_launches == before + 2 * blocks * (
+        plan.launches_per_block)
+    assert torch.equal(out, again)
+    assert torch.equal(out, basic_chain(x.float(), w, sc, sh, blocks).to(
+        torch.bfloat16))
+    ref = basic_chain_plain(x, w, sc, sh, blocks)
+    assert _rel(out.float(), ref.float()) <= 5e-3 + 2.0 ** -8
+
+
+@pytest.mark.parametrize("C", [32, 64])
+def test_chain_kernel_bf16_refuses_an_unaligned_input(dev, C):
+    """An x whose data is not 16-byte aligned (TMA cannot read it, and
+    the passes' vector loads fault on it) is refused before any launch;
+    the fused entry point refuses it and a W % 8 != 0 shape."""
+    B, H, W, blocks = 16, 16, 24, 2
+    g = torch.Generator().manual_seed(C)
+    flat = torch.randn(B * C * H * W + 1, generator=g).to(
+        torch.bfloat16).to(dev)
+    x = flat[1:].view(B, C, H, W)
+    assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    w, sc, sh = _chain_operands(g, blocks, C, dev)
+    plan = _sms_plan(dev, B, C, H, W)
+    assert plan.fused
+    before = basic_chain.bf16_launches
+    with pytest.raises(ValueError, match="aligned"):
+        basic_chain(x, w, sc, sh, blocks)
+    assert basic_chain.bf16_launches == before
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    y = torch.empty(B, C, H, W, device=dev)
+    res = torch.empty_like(x)
+    for xp, wd in ((x.data_ptr(), W), (x.clone().data_ptr(), W - 1)):
+        assert _build.load().romp_chain_bf16_fused(
+            xp, y.data_ptr(), None, res.data_ptr(), w.data_ptr(),
+            sc.data_ptr(), sh.data_ptr(), blocks, B, C, H, wd,
+            plan.tile_h, plan.tile_w, plan.warps, plan.stages, plan.smem,
+            plan.ctas, sms, None) != 0
+
+
+@pytest.mark.parametrize("B", [1, 2, 8, 64])
+@pytest.mark.parametrize("C,H", [(32, 128), (64, 64)])
+def test_chain_bf16_plan_matches_the_kernel(dev, B, C, H):
+    """ops/fused_chain.py's plan is the kernel's own
+    (`romp_chain_bf16_fused_plan`): tile, warps, stages, shared memory,
+    CTAs."""
+    plan = _sms_plan(dev, B, C, H, H)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = (ctypes.c_longlong * 6)()
+    assert _build.load().romp_chain_bf16_fused_plan(
+        B, C, H, H, plan.tile_h, plan.tile_w, plan.warps, sms,
+        ctypes.addressof(out)) == 0
+    assert list(out) == [plan.tile_h, plan.tile_w, plan.warps, plan.stages,
+                         plan.smem, plan.ctas]
 
 
 def _bf16_offsets(g, kind, B, G, H, W):
